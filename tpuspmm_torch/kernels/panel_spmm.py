@@ -1,0 +1,750 @@
+"""Pre-densified panel SpMM: plan-time block densification (kernel K1).
+
+Counterpart of ``tpuspmm/kernels/panel_spmm.py``.  The sparse operand is
+static across serving calls, so its nonzeros are grouped once at plan time
+by (row supertile, k-tile, row strip of tm rows), and each group is
+densified into a (tm × tk) strip.  Each (supertile, k-tile) pair's strip
+list is padded to a multiple of P, so the stacked plan is a sequence of
+panels of P strips that share one k-tile:
+
+    for each panel p, strip i:  C[st[p]·sm + offs[p, i] : +tm, :]
+                                    += A_strip[p, i] @ B[kt[p]·tk : +tk, :]
+
+Padding strips carry offset ``sm`` (the TPU kernel's trash strip).
+
+On the card the panel layout is served by the strip-owner kernel
+(``csrc/strip_spmm.cu``, entry ``panel_strip_spmm``): the plan arrays stay
+exactly as above, and a CSR index over the output strips
+(:meth:`PanelPlan.strip_index`) gives each output strip one owner that
+walks its plan strips in plan order.  On a CPU tensor the wrapper runs the
+plain version, :func:`panel_spmm_plain`.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import operator
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from tpuspmm_torch.formats.base import container_cache
+from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
+
+# admission cap on the stacked dense plan (re-read from device memory
+# every call)
+PLAN_BYTES_CAP = 512 * 1024 * 1024
+
+
+def plan_tensor(a_dense: np.ndarray) -> torch.Tensor:
+    """Host tensor of a stacked plan: float32, or bfloat16 for a plan stored
+    as its uint16 bit pattern."""
+    a_dense = np.ascontiguousarray(a_dense)
+    if a_dense.dtype == np.uint16:
+        return torch.from_numpy(a_dense.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a_dense)
+
+
+def strip_owner_index(out_strip: np.ndarray, slot: np.ndarray,
+                      kt: np.ndarray, n_out: int):
+    """CSR index over output strips from per-entry (output strip, plan
+    slot, k-tile) listed in plan order: (strip_ptr, src_slot, src_kt),
+    int32.  The stable sort keeps plan order inside each output strip."""
+    out_strip = np.asarray(out_strip, np.int64)
+    order = np.argsort(out_strip, kind="stable")
+    strip_ptr = np.zeros(n_out + 1, np.int64)
+    strip_ptr[1:] = np.cumsum(np.bincount(out_strip, minlength=n_out))
+    return (strip_ptr.astype(np.int32),
+            np.asarray(slot, np.int32)[order],
+            np.asarray(kt, np.int32)[order])
+
+
+def _device_cache(plan, device, build):
+    """Per-device tensors of a plan, transferred once and cached on it."""
+    cache = plan.__dict__.setdefault("_device", {})
+    key = str(torch.device(device))
+    if key not in cache:
+        cache[key] = {name: t.to(device) for name, t in build().items()}
+    return cache[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelPlan:
+    """Plan-time densification of a sparse matrix into panels."""
+
+    kt: np.ndarray       # (n_panels,) int32 — k-tile per panel (sorted
+    #                      within each supertile)
+    st: np.ndarray       # (n_panels,) int32 — supertile per panel
+    #                      (ascending; every supertile appears)
+    offs: np.ndarray     # (n_panels, P) int32 — supertile-local C row
+    #                      offset per strip; padding strips hold sm
+    a_dense: np.ndarray  # (n_panels · P · tm, tk) — stacked strips; float32,
+    #                      or uint16 bf16 bit patterns when every (deduped)
+    #                      value round-trips bf16 losslessly
+
+    shape: Tuple[int, int]
+    tm: int
+    tk: int
+    panel_strips: int  # P
+    sm: int            # supertile rows (multiple of tm); m_pad for one
+    row_perm: np.ndarray | None = None  # original row placed at permuted
+    #                    position j is row_perm[j]
+
+    @property
+    def n_panels(self) -> int:
+        return int(self.kt.shape[0])
+
+    @property
+    def m_pad(self) -> int:
+        return round_up(self.shape[0], self.tm)
+
+    @property
+    def n_supertiles(self) -> int:
+        return -(-self.m_pad // self.sm)
+
+    @property
+    def n_out_strips(self) -> int:
+        return self.n_supertiles * (self.sm // self.tm)
+
+    @property
+    def num_k_tiles(self) -> int:
+        return -(-self.shape[1] // self.tk)
+
+    @property
+    def plan_bytes(self) -> int:
+        return int(self.a_dense.nbytes)
+
+    def strip_index(self):
+        """(strip_ptr, src_slot, src_kt) over the output strips of the
+        permuted C, trash-free; cached."""
+        cached = self.__dict__.get("_strip_index")
+        if cached is None:
+            P = self.panel_strips
+            offs = self.offs.reshape(-1).astype(np.int64)
+            used = offs != self.sm
+            st = np.repeat(self.st.astype(np.int64), P)
+            out_strip = st * (self.sm // self.tm) + offs // self.tm
+            slot = np.arange(self.n_panels * P)
+            cached = strip_owner_index(out_strip[used], slot[used],
+                                       np.repeat(self.kt, P)[used],
+                                       self.n_out_strips)
+            object.__setattr__(self, "_strip_index", cached)
+        return cached
+
+    def device_arrays(self, device):
+        """Plan arrays, strip index and un-permute index on ``device``,
+        transferred once and cached."""
+        def build():
+            strip_ptr, src_slot, src_kt = self.strip_index()
+            arrs = {"kt": self.kt, "st": self.st, "offs": self.offs,
+                    "strip_ptr": strip_ptr, "src_slot": src_slot,
+                    "src_kt": src_kt}
+            out = {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in arrs.items()}
+            out["a_dense"] = plan_tensor(self.a_dense)
+            if self.row_perm is not None:
+                out["inv"] = torch.from_numpy(
+                    np.argsort(np.asarray(self.row_perm)).astype(np.int64))
+            return out
+
+        return _device_cache(self, device, build)
+
+
+def _occupied_strip_groups(rows, ktile, nkt: int, tm: int):
+    """Sorted unique (row-strip, k-tile) group ids."""
+    return np.unique((rows // tm) * nkt + ktile)
+
+
+def _st_strip_counts_from_groups(g, nkt: int, st_div: int):
+    """Occupied strips per (supertile, k-tile) pair, and the number of
+    occupied supertiles."""
+    st_g = (g // nkt) // st_div
+    pair = st_g * nkt + (g % nkt)
+    _, cnt = np.unique(pair, return_counts=True)
+    return cnt, len(np.unique(st_g))
+
+
+def _padded_strips(cnt: np.ndarray, P: int) -> int:
+    """Total strips after padding each k-tile's list to a multiple of P."""
+    return int(((-(-cnt // P)) * P).sum())
+
+
+# Named row-ordering kinds, index-aligned with _order_candidates' return.
+ORDER_KINDS = ("centroid", "first_centroid", "signature")
+
+
+def _row_centroids(rows, cols, m: int):
+    cent = np.zeros(m)
+    num = np.zeros(m)
+    np.add.at(cent, rows, cols)
+    np.add.at(num, rows, 1)
+    return np.where(num > 0, cent / np.maximum(num, 1), np.inf)
+
+
+def _order_perm(rows, cols, m: int, ktile, kind: str, sig_depth: int = 4,
+                cent=None):
+    """One named candidate row permutation (see _order_candidates)."""
+    if cent is None:
+        cent = _row_centroids(rows, cols, m)
+    if kind == "centroid":
+        return np.argsort(cent, kind="stable")
+    if kind == "first_centroid":
+        first = np.full(m, np.inf)
+        np.minimum.at(first, rows, ktile)
+        return np.lexsort((cent, first))
+    if kind != "signature":
+        raise ValueError(f"unknown row-order kind {kind!r}")
+    # signature keys: the d-th distinct k-tile of each row (BIG when the
+    # row has fewer than d+1 distinct tiles, pushing short rows together)
+    nk = int(ktile.max()) + 1 if len(ktile) else 1
+    dd = np.unique(rows * np.int64(nk) + ktile)
+    rr, kk = dd // nk, dd % nk
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(rr)) + 1])
+    counts = np.diff(np.concatenate([starts, [len(rr)]]))
+    BIG = np.int64(1) << 40
+    keys = np.full((m, sig_depth), BIG, np.int64)
+    urows = rr[starts]
+    for d in range(sig_depth):
+        sel = counts > d
+        keys[urows[sel], d] = kk[starts[sel] + d]
+    return np.lexsort((cent, *(keys[:, d] for d in
+                               range(sig_depth - 1, -1, -1))))
+
+
+def _order_candidates(rows, cols, m: int, ktile, sig_depth: int = 4):
+    """Candidate row permutations that cluster rows sharing k-tiles into
+    the same strip: column-centroid sort, (first k-tile, centroid)
+    lexsort, and a k-tile-signature lexsort."""
+    cent = _row_centroids(rows, cols, m)
+    return tuple(_order_perm(rows, cols, m, ktile, kind, sig_depth,
+                             cent=cent)
+                 for kind in ORDER_KINDS)
+
+
+# P, strip-height and k-tile-width candidates of the joint search
+STRIP_CANDIDATES = (8, 16, 32, 64)
+TM_CANDIDATES = (8, 16, 32)
+TK_CANDIDATES = (128, 256, 512)
+
+
+def _geometry_search(rows, cols, m: int, k: int, tm, tk: int,
+                     candidates, *,
+                     plan_bytes_cap: int | None = None,
+                     step_us: float = 0.0,
+                     strip_us: float = 0.0,
+                     hbm_gbps: float = 3350.0,
+                     perm_us: float = 0.0,
+                     reorder: bool = True,
+                     prefer: int = 16,
+                     val_bytes: int = 4):
+    """Joint (tm, tk, P, row order) search for a single-supertile plan,
+    minimising the modelled serve time
+
+        n_strips·(strip_bytes/bandwidth + strip_us) + n_panels·step_us
+        [+ perm_us if row-reordered]
+
+    with exact plan bytes per candidate (``plan_bytes_cap`` filters).  A
+    ≥3% modelled win is required to leave the natural order at (first tm,
+    first tk, P=prefer), falling back to the smallest admissible P.
+    ``tm`` and ``tk`` may each be an int (pinned) or a tuple of
+    candidates.  Returns (P, row_perm, sm, plan_bytes, tm, order_kind, tk,
+    cost_us) or None when no candidate passes admission."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    tms = (tm,) if isinstance(tm, int) else tuple(tm)
+    tks = (tk,) if isinstance(tk, int) else tuple(tk)
+    bw = hbm_gbps * 1e3          # bytes per µs
+
+    # (cost, P, perm, sm, plan_bytes, tm, order_kind, tk)
+    entries = []
+    for tk_c in tks:
+        nkt = max(1, -(-k // tk_c))
+        ktile = cols // tk_c
+        orders = [(None, rows)]
+        order_kinds = ["natural"]
+        if reorder and len(rows) and m > tms[0]:
+            for kind, perm in zip(ORDER_KINDS,
+                                  _order_candidates(rows, cols, m, ktile)):
+                inv = np.empty(m, np.int64)
+                inv[perm] = np.arange(m)
+                orders.append((perm, inv[rows]))
+                order_kinds.append(kind)
+
+        for tm_c in tms:
+            m_pad = round_up(max(m, tm_c), tm_c)
+            strip_bytes = tm_c * tk_c * val_bytes
+            groups = [_occupied_strip_groups(prows, ktile, nkt, tm_c)
+                      for _, prows in orders]
+            # one supertile: (per-k-tile strip counts, occupied supertiles)
+            counts = [_st_strip_counts_from_groups(g, nkt, m_pad // tm_c)
+                      for g in groups]
+            for P in candidates:
+                for oi, (perm, _) in enumerate(orders):
+                    cnt, occ_st = counts[oi]
+                    # an empty matrix still serves one all-padding panel
+                    s = _padded_strips(cnt, P) + (1 - occ_st) * P
+                    plan_bytes = s * strip_bytes
+                    if (plan_bytes_cap is not None
+                            and plan_bytes > plan_bytes_cap):
+                        continue
+                    cost = (s * (strip_bytes / bw + strip_us)
+                            + (s // P) * step_us
+                            + (perm_us if perm is not None else 0.0))
+                    entries.append((cost, P, perm, m_pad, plan_bytes, tm_c,
+                                    order_kinds[oi], tk_c))
+    if not entries:
+        return None
+    naturals = [e for e in entries
+                if e[2] is None and e[5] == tms[0] and e[7] == tks[0]]
+    base = next((e for e in naturals if e[1] == prefer), None)
+    if base is None and naturals:
+        base = naturals[0]  # smallest admissible P, natural order
+    best = min(entries, key=lambda e: e[0])
+    if base is not None and best[0] >= base[0] * 0.97:
+        best = base
+    return (best[1], best[2], best[3], best[4], best[5], best[6], best[7],
+            best[0])
+
+
+def choose_panel_geometry(rows, cols, m: int, k: int, tm: int = 8,
+                          tk: int = 128,
+                          strip_candidates=STRIP_CANDIDATES,
+                          step_us: float = 0.0,
+                          strip_us: float = 0.0,
+                          hbm_gbps: float = 3350.0,
+                          perm_us: float = 0.0):
+    """(P, row_perm) for a single-supertile plan at pinned (tm, tk) — the
+    raw cost-model entry of _geometry_search."""
+    rows = np.asarray(rows, np.int64)
+    if len(rows) == 0 or m <= tm:
+        return 16, None
+    g = _geometry_search(rows, cols, m, k, tm, tk, strip_candidates,
+                         step_us=step_us, strip_us=strip_us,
+                         hbm_gbps=hbm_gbps, perm_us=perm_us)
+    return (16, None) if g is None else (g[0], g[1])
+
+
+def values_bf16_exact(vals) -> bool:
+    """Do these f32 values round-trip bf16 losslessly?"""
+    v = torch.from_numpy(np.ascontiguousarray(vals, np.float32))
+    return bool(torch.equal(v.to(torch.bfloat16).float(), v))
+
+
+def _bf16_bits(vals: np.ndarray) -> np.ndarray:
+    """uint16 bit patterns of bf16-representable f32 values."""
+    v = torch.from_numpy(np.ascontiguousarray(vals, np.float32))
+    return v.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def _dedupe_triplets(rows, cols, vals, k: int):
+    """Collapse duplicate coordinates once at plan time, summing in f64
+    then rounding to f32, so every plan slot holds exactly one value."""
+    if not len(rows):
+        return rows, cols, vals
+    key = rows * np.int64(k) + cols
+    uniq, inv = np.unique(key, return_inverse=True)
+    if len(uniq) == len(rows):
+        return rows, cols, vals
+    acc = np.zeros(len(uniq), np.float64)
+    np.add.at(acc, inv, vals.astype(np.float64))
+    return ((uniq // k).astype(np.int64), (uniq % k).astype(np.int64),
+            acc.astype(np.float32))
+
+
+def plan_values_bf16_exact(rows, cols, vals, k: int) -> bool:
+    """Exact predictor of whether a plan built from these triplets stores
+    bf16 (the plan's nonzeros are precisely the deduped values)."""
+    _, _, v = _dedupe_triplets(np.asarray(rows, np.int64),
+                               np.asarray(cols, np.int64),
+                               np.asarray(vals, np.float32), k)
+    return values_bf16_exact(v)
+
+
+def build_panel_plan(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    tm: int = 8,
+    tk: int = 128,
+    panel_strips: int = 16,
+    sm: int | None = None,
+    row_perm: np.ndarray | None = None,
+) -> PanelPlan:
+    """Group triplets by (supertile, k-tile, row-strip), supertile-major
+    then kt-major; densify each group into a (tm × tk) strip; pad each
+    (supertile, k-tile)'s strip list to a multiple of P.  ``sm``
+    (supertile rows, multiple of tm) defaults to one supertile.  The
+    arrays equal ``tpuspmm``'s (a bf16 plan as its uint16 bits)."""
+    if tm % 8:
+        raise ValueError("tm must be a multiple of 8")
+    P = panel_strips
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.float32)
+    m, k = shape
+    if row_perm is not None:
+        inv = np.empty(m, np.int64)
+        inv[np.asarray(row_perm, np.int64)] = np.arange(m)
+        rows = inv[rows]  # the plan computes the permuted C
+    rows, cols, vals = _dedupe_triplets(rows, cols, vals, k)
+    store_bf16 = values_bf16_exact(vals)
+    m_pad = round_up(m, tm)
+    if sm is None:
+        sm = m_pad
+    if sm % tm or sm <= 0:
+        raise ValueError("sm must be a positive multiple of tm")
+    n_st = max(1, -(-m_pad // sm))
+    strips_per_st = sm // tm
+
+    rt = rows // tm
+    ktile = cols // tk
+    stile = rt // strips_per_st
+    nrt = -(-m // tm)
+    nkt = -(-k // tk)
+    order = np.lexsort((rt, ktile, stile))  # supertile-, then kt-major
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    rt, ktile, stile = rt[order], ktile[order], stile[order]
+
+    group_key = (stile * nkt + ktile) * nrt + rt
+    if len(group_key):
+        gb = np.flatnonzero(np.diff(group_key)) + 1
+        starts = np.concatenate([[0], gb]).astype(np.int64)
+    else:
+        starts = np.zeros(0, dtype=np.int64)
+    g_rt = rt[starts] if len(starts) else np.zeros(0, np.int64)
+    g_kt = ktile[starts] if len(starts) else np.zeros(0, np.int64)
+    g_st = stile[starts] if len(starts) else np.zeros(0, np.int64)
+    n_groups = len(starts)
+
+    if n_groups == 0:  # empty matrix: one all-padding panel per supertile
+        return PanelPlan(kt=np.zeros(n_st, np.int32),
+                         st=np.arange(n_st, dtype=np.int32),
+                         offs=np.full((n_st, P), sm, np.int32),
+                         a_dense=np.zeros((n_st * P * tm, tk), np.uint16),
+                         shape=tuple(shape), tm=tm, tk=tk, panel_strips=P,
+                         sm=sm, row_perm=row_perm)
+
+    # per-(supertile, k-tile) group counts, padded to multiples of P
+    pair_key = g_st * nkt + g_kt
+    pairs_unique, pair_counts = np.unique(pair_key, return_counts=True)
+    padded = (-(-pair_counts // P)) * P
+    pair_start = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    n_strips = int(padded.sum())
+    n_panels = n_strips // P
+
+    # strip slot per group: groups within a (supertile, k-tile) pair take
+    # consecutive ranks
+    pair_index = np.searchsorted(pairs_unique, pair_key)
+    first_of_pair = np.concatenate([[0], np.cumsum(pair_counts)[:-1]])
+    rank_in_pair = np.arange(n_groups) - first_of_pair[pair_index]
+    slot = (pair_start[pair_index] + rank_in_pair).astype(np.int64)
+
+    kt_arr = np.repeat(pairs_unique % nkt, padded // P).astype(np.int32)
+    st_arr = np.repeat(pairs_unique // nkt, padded // P).astype(np.int32)
+    offs = np.full(n_strips, sm, np.int32)  # default: padding strip
+    offs[slot] = (g_rt * tm - g_st * sm).astype(np.int32)
+    offs = offs.reshape(n_panels, P)
+
+    # densify: flat slots are unique after dedupe — a pure placement
+    g_sizes = np.diff(np.concatenate([starts, [len(rows)]]))
+    trip_group = np.repeat(np.arange(n_groups), g_sizes)
+    r_local = rows - g_rt[trip_group] * tm
+    c_local = cols - g_kt[trip_group] * tk
+    flat = (slot[trip_group] * tm + r_local) * tk + c_local
+    a_dense = np.zeros(n_strips * tm * tk,
+                       np.uint16 if store_bf16 else np.float32)
+    a_dense[flat] = _bf16_bits(vals) if store_bf16 else vals
+    a_dense = a_dense.reshape(n_strips * tm, tk)
+
+    # every supertile appears: an all-padding panel for an empty one
+    missing = np.setdiff1d(np.arange(n_st), st_arr)
+    if len(missing):
+        kt_arr = np.concatenate([kt_arr, np.zeros(len(missing), np.int32)])
+        st_arr = np.concatenate([st_arr, missing.astype(np.int32)])
+        offs = np.concatenate([offs, np.full((len(missing), P), sm,
+                                             np.int32)])
+        a_dense = np.concatenate(
+            [a_dense, np.zeros((len(missing) * P * tm, tk), a_dense.dtype)])
+        perm = np.lexsort((kt_arr, st_arr))
+        kt_arr, st_arr, offs = kt_arr[perm], st_arr[perm], offs[perm]
+        a_dense = a_dense.reshape(-1, P * tm, tk)[perm].reshape(-1, tk)
+
+    return PanelPlan(kt=kt_arr, st=st_arr, offs=offs, a_dense=a_dense,
+                     shape=tuple(shape), tm=tm, tk=tk, panel_strips=P,
+                     sm=sm, row_perm=row_perm)
+
+
+PanelGeometry = collections.namedtuple(
+    "PanelGeometry",
+    "panel_strips row_perm sm plan_bytes tm order_kind tk cost_us",
+    defaults=(8, "natural", 128, None))
+# cost_us: the search's modelled serve time, comparable with a
+# PairGeometry's — how the dispatcher picks between the two kernels.
+
+
+def _panel_model_kwargs(th: dict, m: int, k: int, n_pad: int,
+                        plan_bytes_cap, reorder_rows: bool,
+                        rows, cols, values) -> dict:
+    """`_geometry_search` kwargs from the device's cost constants.
+    perm_us charges the un-permute of a row-reordered C: the m×n_pad output
+    read and written once at the row-gather bandwidth."""
+    perm_us = m * n_pad * 4 * 2 / (th["panel_gather_gbps"] * 1e3)
+    return dict(
+        plan_bytes_cap=plan_bytes_cap,
+        step_us=th["panel_step_us"],
+        strip_us=th["panel_strip_us"],
+        hbm_gbps=th["panel_hbm_gbps"],
+        perm_us=perm_us, reorder=reorder_rows,
+        val_bytes=2 if plan_values_bf16_exact(rows, cols, values, k)
+        else 4)
+
+
+def resolve_panel_geometry(a, n_pad: int = 256, tm: int | None = None,
+                           tk: int | None = None,
+                           panel_strips: int | None = None,
+                           reorder_rows: bool = True,
+                           plan_bytes_cap: int | None = None,
+                           device="cpu"):
+    """The panel geometry for a container (single supertile): a
+    PanelGeometry, or None when no candidate passes ``plan_bytes_cap``.
+
+    ``panel_strips=None`` searches P; an int pins it (degrading to smaller
+    candidates only when it is inadmissible).  ``tm=None`` / ``tk=None``
+    search the strip heights / k-tile widths; ints pin them.  The cost
+    constants are ``dispatch.thresholds(device)``.  Cached on the
+    container."""
+    from tpuspmm_torch.kernels.dispatch import thresholds
+    from tpuspmm_torch.ops.xla import coo_view
+
+    th = thresholds(device)
+    tm_arg = TM_CANDIDATES if tm is None else tm
+    tk_arg = TK_CANDIDATES if tk is None else tk
+    key = ("panel_geom", tm_arg, tk_arg, panel_strips, reorder_rows, n_pad,
+           plan_bytes_cap, tuple(sorted(th.items())))
+    cache = container_cache(a)
+    if key in cache:
+        return cache[key]
+
+    coo = coo_view(a)
+    m, k = coo.shape
+    rows = np.asarray(coo.rows)
+    cols = np.asarray(coo.cols)
+    kwargs = _panel_model_kwargs(th, m, k, n_pad, plan_bytes_cap,
+                                 reorder_rows, rows, cols, coo.values)
+    if panel_strips is not None:
+        g = _geometry_search(rows, cols, m, k, tm_arg, tk_arg,
+                             (panel_strips,), prefer=panel_strips, **kwargs)
+        if g is None:  # pinned P inadmissible — degrade, don't refuse
+            smaller = tuple(c for c in STRIP_CANDIDATES if c < panel_strips)
+            if smaller:
+                g = _geometry_search(rows, cols, m, k, tm_arg, tk_arg,
+                                     smaller, prefer=smaller[0], **kwargs)
+    else:
+        g = _geometry_search(rows, cols, m, k, tm_arg, tk_arg,
+                             STRIP_CANDIDATES, prefer=16, **kwargs)
+    geom = None if g is None else PanelGeometry(*g)
+    cache[key] = geom
+    return geom
+
+
+def panel_plan_from_geometry(a, geom: PanelGeometry) -> PanelPlan:
+    """Build (or fetch the cached) PanelPlan for a geometry; the cache key
+    is the geometry's content (tm, tk, P, sm, permutation bytes)."""
+    perm = geom.row_perm
+    m_pad = round_up(int(a.shape[0]), geom.tm)
+    sm = geom.sm if geom.sm != m_pad else None
+    fp = None if perm is None else hash(np.asarray(perm).tobytes())
+    key = ("panel", geom.tm, geom.tk, geom.panel_strips, sm, fp)
+    cache = container_cache(a)
+    if key not in cache:
+        from tpuspmm_torch.ops.xla import coo_view
+
+        coo = coo_view(a)
+        cache[key] = build_panel_plan(
+            coo.rows, coo.cols, coo.values, coo.shape, tm=geom.tm,
+            tk=geom.tk, panel_strips=geom.panel_strips, sm=sm,
+            row_perm=perm)
+    return cache[key]
+
+
+def panel_plan_from_container(a, tm: int | None = None,
+                              tk: int | None = None,
+                              panel_strips: int | None = None,
+                              sm: int | None = None,
+                              reorder_rows: bool = True,
+                              n_pad: int = 256,
+                              device="cpu") -> PanelPlan:
+    """Resolve the geometry and build (or fetch) the PanelPlan.  An explicit
+    ``sm`` splits the output into supertiles of sm rows."""
+    geom = resolve_panel_geometry(a, n_pad=n_pad, tm=tm, tk=tk,
+                                  panel_strips=panel_strips,
+                                  reorder_rows=reorder_rows, device=device)
+    if sm is not None:
+        if sm % geom.tm:
+            # a supertile the searched strip height cannot divide:
+            # re-resolve at tm=8, which divides every valid sm
+            geom = resolve_panel_geometry(a, n_pad=n_pad, tm=8, tk=tk,
+                                          panel_strips=panel_strips,
+                                          reorder_rows=reorder_rows,
+                                          device=device)
+        geom = geom._replace(sm=sm)
+    return panel_plan_from_geometry(a, geom)
+
+
+def normalize_panel_mode(mode: str) -> str:
+    """Public tier names of the panel family to the internal ones:
+    "highest" (gate-exact) stays, "split2" (2-term bf16 splits,
+    verified-only) becomes "split".  "split", the robust 3-term tier of
+    the one-hot kernels, is refused here."""
+    if mode == "split2":
+        return "split"
+    if mode == "highest":
+        return mode
+    raise ValueError(
+        f"panel-family mode must be 'highest' or 'split2', got {mode!r}")
+
+
+def panel_matmul(a_panel: torch.Tensor, b_tile: torch.Tensor,
+                 mode: str) -> torch.Tensor:
+    """The precision ladder of the panel-family kernels (the TPU's
+    ``panel_matmul``) in float32 matmuls: each bf16 term is exact in f32,
+    so the terms and their order are the TPU kernel's.
+
+    - a bf16 & b bf16: one exact product.
+    - a bf16, b f32: 3 bf16 terms of B ("highest"), 2 for "split".
+    - a f32, "split": hi·hi + lo·hi + hi·lo (2 terms of A with bf16 B).
+    - a f32, b bf16: 3 bf16 terms of A.
+    - a f32, b f32, "highest": one f32 product."""
+    def _dot(x, y):
+        return torch.matmul(x.float(), y.float())
+
+    a_exact = a_panel.dtype == torch.bfloat16
+    b_exact = b_tile.dtype == torch.bfloat16
+    if a_exact and b_exact:
+        return _dot(a_panel, b_tile)
+    if a_exact:
+        parts = split_bf16(b_tile, 2 if mode == "split" else 3)
+        return functools.reduce(operator.add,
+                                [_dot(a_panel, p) for p in parts])
+    if mode == "split":
+        a_hi, a_lo = split_bf16(a_panel, 2)
+        if b_exact:
+            return _dot(a_hi, b_tile) + _dot(a_lo, b_tile)
+        b_hi, b_lo = split_bf16(b_tile, 2)
+        return _dot(a_hi, b_hi) + _dot(a_lo, b_hi) + _dot(a_hi, b_lo)
+    if b_exact:
+        parts = split_bf16(a_panel, 3)
+        return functools.reduce(operator.add,
+                                [_dot(p, b_tile) for p in parts])
+    return _dot(a_panel, b_tile)
+
+
+# bytes of gathered B tiles and products per batch of the plain versions
+PLAIN_BATCH_BYTES = 256 * 1024 * 1024
+
+
+def slab_rows(st, offs, sm: int, tm: int) -> torch.Tensor:
+    """Row of the slab layout (per-supertile trash strip included,
+    n_st·(sm+tm) rows) for every plan row: st·(sm+tm) + offs + r, with st
+    (n,) and offs (n, strips)."""
+    base = st.long().unsqueeze(-1) * (sm + tm) + offs.long()
+    return (base.unsqueeze(-1)
+            + torch.arange(tm, device=base.device)).reshape(-1)
+
+
+def panel_spmm_plain(plan: PanelPlan, b: torch.Tensor,
+                     mode: str = "highest") -> torch.Tensor:
+    """Plain PyTorch version of the panel kernel on b's device: per panel,
+    a batched product of the stacked strips with the gathered B tiles
+    through :func:`panel_matmul`, added into the slab by ``offs``
+    (``index_add_``), then :func:`finish_panel_output`."""
+    mode = normalize_panel_mode(mode)
+    arrs = plan.device_arrays(b.device)
+    m, _ = plan.shape
+    n = int(b.shape[1])
+    n_pad = round_up(n, 128)
+    P, tm, tk = plan.panel_strips, plan.tm, plan.tk
+    b_tiles = pad_b(b, plan.num_k_tiles * tk, n_pad).reshape(
+        plan.num_k_tiles, tk, n_pad)
+    a3 = arrs["a_dense"].reshape(plan.n_panels, P * tm, tk)
+    rows = slab_rows(arrs["st"], arrs["offs"], plan.sm, tm)
+    out = torch.zeros(plan.n_supertiles * (plan.sm + tm), n_pad,
+                      dtype=torch.float32, device=b.device)
+    batch = max(1, PLAIN_BATCH_BYTES // ((tk + P * tm) * n_pad * 4))
+    for p0 in range(0, plan.n_panels, batch):
+        p1 = min(p0 + batch, plan.n_panels)
+        acc = panel_matmul(a3[p0:p1], b_tiles[arrs["kt"][p0:p1].long()],
+                           mode)
+        out.index_add_(0, rows[p0 * P * tm:p1 * P * tm],
+                       acc.reshape(-1, n_pad))
+    return finish_panel_output(out, plan, arrs, n)
+
+
+def finish_panel_output(out: torch.Tensor, plan, arrs: dict,
+                        n: int) -> torch.Tensor:
+    """Shared epilogue of the panel-family paths: drop each supertile's
+    trash strip when ``out`` is in the slab layout (n_st·(sm+tm) rows, what
+    the plain versions accumulate into; the strip-owner kernel writes the
+    trash-free n_st·sm rows), restore the original row order of a
+    row-permuted plan, and slice to (m, n)."""
+    n_st, sm, tm = plan.n_supertiles, plan.sm, plan.tm
+    if out.shape[0] == n_st * (sm + tm):
+        out = out.reshape(n_st, sm + tm, -1)[:, :sm].reshape(n_st * sm, -1)
+    if plan.row_perm is not None:
+        return out.index_select(0, arrs["inv"])[:, :n]
+    return out[:plan.shape[0], :n]
+
+
+def check_operand(plan, b: torch.Tensor, mode: str) -> None:
+    """Refuse a dense operand that does not fit the plan, and a tier the
+    CUDA kernel does not serve."""
+    if b.dim() != 2 or b.shape[0] != plan.shape[1]:
+        raise ValueError(f"b must be (K={plan.shape[1]}, N), got "
+                         f"{tuple(b.shape)}")
+    if b.device.type != "cpu" and mode != "highest":
+        raise NotImplementedError(
+            "the split2 tier has no CUDA kernel yet (ROADMAP Queue 2b, "
+            "split2 on CUDA)")
+
+
+def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
+               tm: int | None = None, tk: int | None = None,
+               panel_strips: int | None = None) -> torch.Tensor:
+    """Container- or plan-level entry of the panel kernel.
+
+    On a CUDA tensor it launches the strip-owner kernel (``csrc/
+    strip_spmm.cu``, ``panel_strip_spmm``) or raises; on a CPU tensor it
+    runs :func:`panel_spmm_plain`.  ``mode``: "highest" (gate-exact) or
+    "split2" (verified-only, plain version only in this port).  A
+    container resolves its geometry for b's device (single supertile)."""
+    normalize_panel_mode(mode)  # refuses an unknown tier before planning
+    n = int(b.shape[1])
+    if isinstance(a_or_plan, PanelPlan):
+        plan = a_or_plan
+    else:
+        geom = resolve_panel_geometry(a_or_plan, round_up(n, 128), tm=tm,
+                                      tk=tk, panel_strips=panel_strips,
+                                      plan_bytes_cap=PLAN_BYTES_CAP,
+                                      device=b.device)
+        if geom is None:
+            raise ValueError(
+                f"no panel geometry admissible at width {n}: every "
+                "candidate plan exceeds PLAN_BYTES_CAP")
+        plan = panel_plan_from_geometry(a_or_plan, geom)
+    check_operand(plan, b, mode)
+    if b.device.type == "cpu":
+        return panel_spmm_plain(plan, b, mode)
+    from tpuspmm_torch.kernels import strip_cuda
+
+    arrs = plan.device_arrays(b.device)
+    out = strip_cuda.strip_spmm("panel_strip_spmm", arrs, b,
+                                plan.n_out_strips, plan.tm, plan.tk)
+    spmm_panel.launches += 1
+    return finish_panel_output(out, plan, arrs, n)
+
+
+spmm_panel.launches = 0
