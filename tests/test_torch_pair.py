@@ -168,7 +168,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     meta = torch.empty(k, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tq.spmm_pair(plan, meta)
-    with pytest.raises(NotImplementedError, match="split2"):
+    with pytest.raises(ValueError, match="CUDA"):
         tq.spmm_pair(plan, meta, mode="split2")
     with pytest.raises(ValueError, match="K=300"):
         tq.spmm_pair(plan, torch.zeros(k - 1, 64))

@@ -10,7 +10,9 @@ Quick start::
     from tpuspmm_torch.formats import convert
     A = convert.load_sparse("data/large_25605", "csr")
     B = torch.rand(A.shape[1], 256, device="cuda") * 2 - 1
-    C = tpuspmm_torch.spmm(A, B)   # panel or pair kernel, by cost model
+    C = tpuspmm_torch.spmm(A, B)   # the dispatcher, in tpuspmm's order
+
+The CSR / COO engine: ``python -m tpuspmm_torch.cli --csr --coo -d DIR``.
 """
 
 from tpuspmm_torch.config import Config, default_config

@@ -6,6 +6,8 @@ Counterpart of ``tpuspmm/engine/report.py`` with the reference's own
 
 from __future__ import annotations
 
+import json
+import sys
 from typing import Optional
 
 # Device-memory bandwidth in GB/s, keyed by the name nvidia-smi and
@@ -41,10 +43,14 @@ def spmm_min_bytes(nnz: int, m: int, k: int, n: int,
 
 def make_record(*, testcase: str, sparsity: float, fmt: str, kernel_type,
                 kernel_name: str = "", correct: Optional[bool] = None,
-                kernel_ms: float = 0.0, n: int = 0,
-                extra: Optional[dict] = None) -> dict:
-    """One record in the reference's reportTime schema; this port times
-    the serve as one kernel span, so prolog and epilog read 0."""
+                prolog_ms: float = 0.0, kernel_ms: float = 0.0,
+                epilog_ms: float = 0.0, sequential_ms: float = 0.0,
+                nnz: int = 0, shape=(0, 0), n: int = 0,
+                device: str = "", extra: Optional[dict] = None) -> dict:
+    """One record in the reference's reportTime schema.  ``device`` names
+    what the times were taken on (the card's name, or "cpu"); throughput
+    fields are added for a card's kernel time (never a CPU's), and the
+    memory-roofline share only on a card the bandwidth table holds."""
     rec = {
         "testcase": testcase,
         "sparsity": sparsity,
@@ -53,13 +59,26 @@ def make_record(*, testcase: str, sparsity: float, fmt: str, kernel_type,
         "kernelName": kernel_name,
         "denseOrdering": "row_major",
         "correct": ("1" if correct else "0") if correct is not None else "",
-        "cudaPrologTimeMs": 0.0,
+        "cudaPrologTimeMs": prolog_ms,
         "cudaKernelTimeMs": kernel_ms,
-        "cudaEpilogTimeMs": 0.0,
-        "cudaTotalTimeMs": kernel_ms,
-        "sequentialTimeMs": 0.0,
+        "cudaEpilogTimeMs": epilog_ms,
+        "cudaTotalTimeMs": prolog_ms + kernel_ms + epilog_ms,
+        "sequentialTimeMs": sequential_ms,
+        "device": device,
         "bCols": int(n),
     }
+    if kernel_ms > 0 and nnz and n and device not in ("", "cpu"):
+        secs = kernel_ms / 1e3
+        rec["gflops"] = spmm_flops(nnz, n) / secs / 1e9
+        rec["nnzPerSec"] = nnz / secs
+        if device in HBM_GBPS:
+            sol = spmm_min_bytes(nnz, shape[0], shape[1], n) / (
+                HBM_GBPS[device] * 1e9)
+            rec["hbmRooflineFraction"] = sol / secs
     if extra:
         rec.update(extra)
     return rec
+
+
+def emit(record: dict, stream=None) -> None:
+    print(json.dumps(record), file=stream or sys.stdout, flush=True)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from tpuspmm_torch.formats import CSR
+from tpuspmm_torch.formats.tiles import TilePlan
 from tpuspmm_torch.kernels.pair_spmm import PairPlan
 from tpuspmm_torch.kernels.panel_spmm import PanelPlan
 
@@ -54,3 +55,21 @@ def pair_plan_from_arrays(kt, st, start, count, offs, a_dense, shape, tm,
                     shape=tuple(int(s) for s in shape), tm=int(tm),
                     tk=int(tk), chunk_strips=int(CH), sm=int(sm),
                     row_perm=_perm(row_perm))
+
+
+def tile_plan_from_arrays(rt, kt, first, rows, cols, vals, shape, tile_m,
+                          tile_k, chunk) -> TilePlan:
+    return TilePlan(rt=_i32(rt), kt=_i32(kt), first=_i32(first),
+                    rows=_i32(rows), cols=_i32(cols),
+                    vals=np.ascontiguousarray(vals, dtype=np.float32),
+                    shape=tuple(int(s) for s in shape), tile_m=int(tile_m),
+                    tile_k=int(tile_k), chunk=int(chunk))
+
+
+def tile_plan_arrays(plan: TilePlan) -> dict:
+    """The fields of a TilePlan as numpy arrays and ints, the keyword
+    arguments of another implementation's TilePlan."""
+    return {"rt": plan.rt, "kt": plan.kt, "first": plan.first,
+            "rows": plan.rows, "cols": plan.cols, "vals": plan.vals,
+            "shape": tuple(plan.shape), "tile_m": plan.tile_m,
+            "tile_k": plan.tile_k, "chunk": plan.chunk}

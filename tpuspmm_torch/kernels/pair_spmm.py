@@ -459,7 +459,7 @@ def spmm_pair(a_or_plan, b: torch.Tensor, mode: str = "highest",
     runs :func:`pair_spmm_plain`.  Same precision tiers as spmm_panel.  A
     container resolves its geometry for b's device (single supertile);
     ``chunk_strips`` pins CH."""
-    normalize_panel_mode(mode)  # refuses an unknown tier before planning
+    split2 = normalize_panel_mode(mode) == "split"  # before planning
     n = int(b.shape[1])
     if isinstance(a_or_plan, PairPlan):
         plan = a_or_plan
@@ -476,14 +476,14 @@ def spmm_pair(a_or_plan, b: torch.Tensor, mode: str = "highest",
         plan = pair_plan_from_container(
             a_or_plan, tm=tm, tk=tk, chunk_strips=geom.chunk_strips,
             n_pad=n_pad, geom=geom, device=b.device)
-    check_operand(plan, b, mode)
+    check_operand(plan, b)
     if b.device.type == "cpu":
         return pair_spmm_plain(plan, b, mode)
     from tpuspmm_torch.kernels import strip_cuda
 
     arrs = plan.device_arrays(b.device)
     out = strip_cuda.strip_spmm("pair_strip_spmm", arrs, b,
-                                plan.n_out_strips, plan.tm, plan.tk)
+                                plan.n_out_strips, plan.tm, plan.tk, split2)
     spmm_pair.launches += 1
     return finish_panel_output(out, plan, arrs, n)
 

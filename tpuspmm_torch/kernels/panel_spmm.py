@@ -699,16 +699,11 @@ def finish_panel_output(out: torch.Tensor, plan, arrs: dict,
     return out[:plan.shape[0], :n]
 
 
-def check_operand(plan, b: torch.Tensor, mode: str) -> None:
-    """Refuse a dense operand that does not fit the plan, and a tier the
-    CUDA kernel does not serve."""
+def check_operand(plan, b: torch.Tensor) -> None:
+    """Refuse a dense operand that does not fit the plan."""
     if b.dim() != 2 or b.shape[0] != plan.shape[1]:
         raise ValueError(f"b must be (K={plan.shape[1]}, N), got "
                          f"{tuple(b.shape)}")
-    if b.device.type != "cpu" and mode != "highest":
-        raise NotImplementedError(
-            "the split2 tier has no CUDA kernel yet (ROADMAP Queue 2b, "
-            "split2 on CUDA)")
 
 
 def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
@@ -719,9 +714,9 @@ def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
     On a CUDA tensor it launches the strip-owner kernel (``csrc/
     strip_spmm.cu``, ``panel_strip_spmm``) or raises; on a CPU tensor it
     runs :func:`panel_spmm_plain`.  ``mode``: "highest" (gate-exact) or
-    "split2" (verified-only, plain version only in this port).  A
-    container resolves its geometry for b's device (single supertile)."""
-    normalize_panel_mode(mode)  # refuses an unknown tier before planning
+    "split2" (verified-only).  A container resolves its geometry for b's
+    device (single supertile)."""
+    split2 = normalize_panel_mode(mode) == "split"  # before planning
     n = int(b.shape[1])
     if isinstance(a_or_plan, PanelPlan):
         plan = a_or_plan
@@ -735,14 +730,14 @@ def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
                 f"no panel geometry admissible at width {n}: every "
                 "candidate plan exceeds PLAN_BYTES_CAP")
         plan = panel_plan_from_geometry(a_or_plan, geom)
-    check_operand(plan, b, mode)
+    check_operand(plan, b)
     if b.device.type == "cpu":
         return panel_spmm_plain(plan, b, mode)
     from tpuspmm_torch.kernels import strip_cuda
 
     arrs = plan.device_arrays(b.device)
     out = strip_cuda.strip_spmm("panel_strip_spmm", arrs, b,
-                                plan.n_out_strips, plan.tm, plan.tk)
+                                plan.n_out_strips, plan.tm, plan.tk, split2)
     spmm_panel.launches += 1
     return finish_panel_output(out, plan, arrs, n)
 

@@ -1,91 +1,53 @@
 """Build, load and launch the strip-owner CUDA kernels (csrc/strip_spmm.cu).
 
-The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/tpuspmm_torch/`` at the repository root (git-ignored), named by the
-hash of the source so an edited source is rebuilt, and bound with ctypes
-through a plain C interface.  Nothing here runs when the module is
-imported: the CPU tests import it without a CUDA toolkit.
+Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build` (nvcc for
+``sm_90a`` at first use into ``build/tpuspmm_torch/``, ctypes).  Nothing
+here runs when the module is imported: the CPU tests import it without a
+CUDA toolkit.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "strip_spmm.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
-                         "tpuspmm_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from tpuspmm_torch.kernels import cuda_build
+
+BUILD_DIR = cuda_build.BUILD_DIR
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 ENTRY_POINTS = ("panel_strip_spmm", "pair_strip_spmm")
 
-_lib = None
+
+def _bind(lib) -> None:
+    args = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_int] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    lib.strip_spmm_error_string.argtypes = [ctypes.c_int]
+    lib.strip_spmm_error_string.restype = ctypes.c_char_p
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME / nvcc)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libstrip_spmm-{digest}.so")
-
-
-def build() -> str:
-    """Compile the library unless this source's build exists; return its
-    path.  Raises with nvcc's output when the build fails."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, path)  # a concurrent loader never sees a partial file
-    return path
-
-
-def load():
-    """The bound library, built at first use."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        args = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_int] + [ctypes.c_void_p] * 4
-                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        for name in ENTRY_POINTS:
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        lib.strip_spmm_error_string.argtypes = [ctypes.c_int]
-        lib.strip_spmm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+LIBRARY = cuda_build.CudaLibrary("strip_spmm.cu", _bind)
+SOURCE = LIBRARY.source
+library_path = LIBRARY.library_path
+build = LIBRARY.build
+load = LIBRARY.load
 
 
 _TYPES = (torch.float32, torch.bfloat16)
 
 
 def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
-               tm: int, tk: int) -> torch.Tensor:
+               tm: int, tk: int, split2: bool = False) -> torch.Tensor:
     """Launch ``entry`` on the current stream: C (n_out_strips·tm, n) f32
     in the trash-free slab layout from the plan tensors in ``arrs``
-    (a_dense, strip_ptr, src_slot, src_kt on b's device).  Checks device,
-    dtype, shape and contiguity, and raises on what the kernel does not
-    take or on a refused launch."""
+    (a_dense, strip_ptr, src_slot, src_kt on b's device), at the 2-term
+    tier when ``split2``.  Checks device, dtype, shape and contiguity, and
+    raises on what the kernel does not take or on a refused launch."""
     a = arrs["a_dense"]
     idx = [arrs[k] for k in ("strip_ptr", "src_slot", "src_kt")]
     if b.device.type != "cuda":
@@ -116,9 +78,7 @@ def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
         rc = getattr(lib, entry)(
             a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
             int(b.dtype == torch.bfloat16), *(t.data_ptr() for t in idx),
-            out.data_ptr(), n_out_strips, tm, tk, k, n,
+            out.data_ptr(), n_out_strips, tm, tk, k, n, int(split2),
             torch.cuda.current_stream(b.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: "
-                           f"{lib.strip_spmm_error_string(rc).decode()}")
+    cuda_build.check_launch(lib, "strip_spmm_error_string", entry, rc)
     return out

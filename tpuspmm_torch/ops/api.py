@@ -8,7 +8,10 @@ Counterpart of ``tpuspmm/ops/api.py::spmm`` with its method names:
   (``kernels/dispatch.py``): CUDA on a CUDA tensor, their plain versions
   on a CPU tensor
 - "auto"    — the same dispatch, on whatever device B is on
-- "xla", "exact", "densify", "tuned" — not yet ported (raise)
+- "xla"     — gather + ``index_add_`` (``ops/xla.py``)
+- "exact"   — float64 accumulation, float32 result (``ops/exact.py``)
+- "densify" — densify once (cached), one f32 matmul per call
+- "tuned"   — not yet ported (raises)
 """
 
 from __future__ import annotations
@@ -17,9 +20,6 @@ import numpy as np
 import torch
 
 _NOT_YET = {
-    "xla": "the gather / segment-sum paths (ROADMAP Queue 1 item 9)",
-    "exact": "the compensated path (ROADMAP Queue 1 item 9)",
-    "densify": "the densify path (ROADMAP Queue 1 item 9)",
     "tuned": "the verified autotune (ROADMAP Queue 1 item 7)",
 }
 
@@ -52,6 +52,15 @@ def spmm(a, b, method: str = "auto", config=None) -> torch.Tensor:
         from tpuspmm_torch.ops import vendor
 
         return vendor.spmm_vendor(a, b)
+    if method in ("xla", "densify"):
+        from tpuspmm_torch.ops import xla
+
+        return (xla.spmm_xla(a, b) if method == "xla"
+                else xla.spmm_densify_cached(a, b))
+    if method == "exact":
+        from tpuspmm_torch.ops import exact
+
+        return exact.spmm_exact(a, b)
     if method in _NOT_YET:
         raise NotImplementedError(
             f"method {method!r} is not yet ported to tpuspmm_torch: "

@@ -28,5 +28,6 @@ def to_torch_csr(a, device) -> torch.Tensor:
 
 
 def spmm_vendor(a, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B through torch.sparse on b's device (float32 B)."""
-    return to_torch_csr(a, b.device) @ b
+    """C = A @ B through torch.sparse on b's device, in float32 (a bf16 B
+    is upcast, exactly)."""
+    return to_torch_csr(a, b.device) @ b.float()
