@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive tpuspmm_torch's serving path and its CSR / COO engine on one
-NVIDIA GPU.
+"""Drive tpuspmm_torch's serving path and its CSR / COO / BSR / ELL
+engines on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -10,8 +10,8 @@ Prints one JSON object per phase:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off for the plain versions;
-2. build: compiles both CUDA sources of tpuspmm_torch/csrc with nvcc, one
-   process each, started together;
+2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc,
+   one process each, started together;
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
    pair kernels' entry points against their plain PyTorch versions on the
    same plan at "highest" and "split2", the gate against the f64 oracle
@@ -28,24 +28,42 @@ Prints one JSON object per phase:
    must differ from the split2 plain by more than that (the control).
    K5a's and K5b's outputs must equal K3's bit for bit: on the card the
    three are one owner walk over the row-major plan;
+4b. block-streaming kernel (K6): on three 4096 x 4096 weights against a
+   4096 x 512 B drawn as bench/pruned_llm.py draws it, f32 and bf16: (a)
+   128 x 128 blocks at 10% block density, (b) (8, 128) blocks at 2% (about
+   half the block rows empty), (c) weight (a) re-blocked to 4 x 4, which
+   ``pack_blocks`` rebuilds into 128 x 128 blocks for K6.  Each: the launch
+   counter rising by one, K6 against its plain version at PLAIN_TOL·max|C|,
+   the gate against the f64 oracle, the times of K6, its plain version,
+   cuSPARSE CSR (``torch.sparse``) and ``torch.sparse_bsr_tensor @ B`` (or
+   the error PyTorch gives).  Then, untimed, K6 against its plain version
+   and the oracle on the block shapes and widths of K6_SHAPES;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
    runs: large_25605 w256 in f32 and bf16 with the default config, and
    again with the panel strip count pinned (``Config(panel_strips=16)``),
    one record in bench.py's shape each; then the corpus dirs large_15120,
    large_21074, medium_2048 and medium_4096, each checked at the gate.
-   The counts are read as this path's launches.  With the model's step
+   The counts are read as this path's launches.  Then the BSR serving
+   path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
+   in f32 and bf16, each served by K6 and by no other kernel, at the gate;
+   the 4 x 4 weight at 10% block density routes to densify (packing
+   refused, as in the JAX package), at the gate.  With the model's step
    and strip costs unfitted, pair never prices below panel at the default
    config (it ties), so the default serves panel; the pinned P prices
    panel higher and the dispatcher serves pair;
 6. engine: every launch count zeroed, then ``tpuspmm_torch.cli.main``
-   runs ``--csr --coo`` on large_25605 ``--width 256`` in f32 and bf16 B,
-   and ``--csr`` on medium_2048 and medium_4096 at their on-disk widths
-   (B 2048 and 4096 wide: the staged kernel slabs).  Every variant record
-   is admitted and checked, or skipped as inadmissible; none carries an
-   error; every variant that is not verified-only passes the gate.  The
-   counts are read as the engine's launches: panel, pair, tile, staged
-   and C-resident each rose.  The full records go to
-   ``build/engine_records.jsonl``;
+   runs ``--csr --coo`` and ``--bsr --ell`` on large_25605 ``--width 256``
+   in f32 and bf16 B, ``--csr`` on medium_2048 and medium_4096 and
+   ``--bsr --ell`` on medium_4096 (its on-disk `.bsr` and `.ell`) at their
+   on-disk widths (B 2048 and 4096 wide: the staged kernel slabs),
+   ``--bsr`` on build/pruned_llm_b128 (weight (a) written with
+   ``BSR.save`` and B as ``dense.in`` by this script), and ``--auto`` on
+   large_25605 w256 and on that directory.  Every variant record is
+   admitted and checked, or skipped as inadmissible; none carries an error;
+   every variant that is not verified-only passes the gate, the one
+   ``--auto`` selected included.  The counts are read as the engine's
+   launches: panel, pair, tile, staged, C-resident and K6 each rose.  The
+   full records go to ``build/engine_records.jsonl``;
 7. dispatch routes: ``tpuspmm_torch.spmm`` on small_32x32 (densify) and
    medium_1484 (compensated), each at the gate;
 8. entry points: counts zeroed again, the panel and pair entry points on
@@ -53,7 +71,9 @@ Prints one JSON object per phase:
 9. extreme-value dirs (medium_1484/2880/4000, large_20000): the panel and
    pair kernels against their plain versions; the gate is printed, not
    required (the dispatcher serves these by the compensated path);
-10. the kernels line, the card line, and the final ok line.
+10. the kernels line (all seven kernels, with the least time the card
+   could take for the work, ``bound_ms``, and the library call's time),
+   the card line, and the final ok line.
 
 Any failed phase raises, and the script exits non-zero.  It exits
 non-zero without a result when no CUDA device is present or when the
@@ -79,6 +99,21 @@ HEADLINE = "large_25605"
 WIDTH = 256
 MAIN_CORPUS = ("large_15120", "large_21074", "medium_2048", "medium_4096")
 EXTREME_CORPUS = ("medium_1484", "medium_2880", "medium_4000", "large_20000")
+# the pruned-LLM weights of the K6 phases: (rows, cols, block, block
+# density, seed), and B as bench/pruned_llm.py draws it
+PRUNED = {"a": (4096, 4096, (128, 128), 0.1, 0),
+          "b": (4096, 4096, (8, 128), 0.02, 1)}
+PRUNED_4X4_DENSIFY = (4096, 4096, (4, 4), 0.1, 0)
+# block shapes and widths the pruned weights do not reach, K6 against its
+# plain version only: (rows, cols, block, block density, seed, B width).
+# Row sub-tiles of 8 where 32 does not divide bh, widths that are not a
+# multiple of the kernel's 64-column tile, and a matrix with no stored block
+K6_SHAPES = ((512, 1024, (16, 256), 0.2, 2, 200),
+             (384, 512, (24, 128), 0.3, 3, 77),
+             (512, 512, (256, 128), 0.5, 4, 130),
+             (256, 512, (8, 128), 0.0, 5, 64))
+PRUNED_WIDTH = 512
+PRUNED_DIR = os.path.join(REPO, "build", "pruned_llm_b128")
 # engine runs: (cli arguments, what the run must show)
 ENGINE_RUNS = (
     ["--csr", "--coo", "-d", HEADLINE, "--width", str(WIDTH)],
@@ -86,8 +121,20 @@ ENGINE_RUNS = (
      "--b-dtype", "bf16"],
     ["--csr", "-d", "medium_2048"],
     ["--csr", "-d", "medium_4096"],
+    ["--bsr", "--ell", "-d", HEADLINE, "--width", str(WIDTH)],
+    ["--bsr", "--ell", "-d", HEADLINE, "--width", str(WIDTH),
+     "--b-dtype", "bf16"],
+    ["--bsr", "--ell", "-d", "medium_4096"],
+    ["--bsr", "-d", PRUNED_DIR],
+    ["--auto", "-d", HEADLINE, "--width", str(WIDTH)],
+    ["--auto", "-d", PRUNED_DIR],
 )
 ROUTES = {"small_32x32": "densify", "medium_1484": "exact"}
+# the card's rates for f32 operands (H100 SXM data sheet): on the tensor
+# cores (TF32), which bound the work, and in FMAs on the CUDA cores, the
+# floor of a kernel that uses no tensor cores
+TF32_PEAK_FLOPS = 495e12
+F32_PEAK_FLOPS = 67e12
 # kernel against its plain version: both sum f32 products (exact for bf16
 # operands) in different orders, so they differ by f32 rounding only
 PLAIN_TOL = 1e-4
@@ -118,6 +165,16 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def bound(nbytes: float, flops: float, hbm_bytes_per_s: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its tensor cores' f32 rate, whichever is longer; and
+    the operations over the CUDA cores' f32 FMA rate (``fma_floor_ms``)."""
+    t_bytes, t_ops = nbytes / hbm_bytes_per_s, flops / TF32_PEAK_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fma_floor_ms": flops / F32_PEAK_FLOPS * 1e3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -130,9 +187,12 @@ def main() -> int:
     from tpuspmm_torch.config import Config
     from tpuspmm_torch import cli
     from tpuspmm_torch.formats import tiles
-    from tpuspmm_torch.kernels import (chunk_cuda, cres_spmm, csr_vmem,
-                                       cuda_build, dispatch, pair_spmm,
-                                       panel_spmm, strip_cuda, tile_spmm)
+    from tpuspmm_torch.formats import BSR
+    from tpuspmm_torch.formats import io as fio
+    from tpuspmm_torch.kernels import (bsr_cuda, bsr_spmm, chunk_cuda,
+                                       cres_spmm, csr_vmem, cuda_build,
+                                       dispatch, pair_spmm, panel_spmm,
+                                       strip_cuda, tile_spmm)
     from tpuspmm_torch.ops import exact, oracle, vendor
     from tpuspmm_torch.utils.compare import allclose, max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
@@ -151,7 +211,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    libraries = (strip_cuda.LIBRARY, chunk_cuda.LIBRARY)
+    libraries = (strip_cuda.LIBRARY, chunk_cuda.LIBRARY, bsr_cuda.LIBRARY)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
@@ -391,6 +451,104 @@ def main() -> int:
                    for name, (counter, *_) in tile_entries.items()}
     emit("tile_kernel_launches", **tile_window)
 
+    # ---- 4b. block-streaming kernel (K6) against its plain version -------
+    hbm = report.hbm_gbps(gpu) * 1e9
+    pb32 = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (4096, PRUNED_WIDTH)) * 0.05).astype(np.float32)).to(dev)
+    pb16 = pb32.to(torch.bfloat16)
+    weights = {name: BSR.random_blocks(*args) for name, args in PRUNED.items()}
+    weights["c"] = BSR.from_scipy(weights["a"].to_scipy(), (4, 4))
+    packed = bsr_spmm.pack_blocks(weights["c"])
+    check(packed is not None and packed.block_size == (128, 128)
+          and packed.nblocks == weights["a"].nblocks,
+          "weight (c) packs back into (a)'s 128 x 128 blocks")
+    k6 = bsr_spmm.spmm_bsr_stream
+    k6.launches = 0
+    k6_stats, k6_refs = {}, {}
+    for wname, w in weights.items():
+        kw = packed if wname == "c" else w
+        _, bh, bwid = kw.blocks.shape
+        rec = {"block_size": list(w.block_size), "nblocks": w.nblocks,
+               "stored_nnz": w.nnz, "kernel_block_size": [bh, bwid],
+               "kernel_nblocks": kw.nblocks,
+               "empty_block_rows": int((np.diff(kw.indptr) == 0).sum()),
+               "tolerance": f"{PLAIN_TOL}*max|C| (f32 sums in another "
+                            "order)"}
+        for b in (pb32, pb16):
+            tag = "f32" if b.dtype == torch.float32 else "bf16"
+            before = k6.launches
+            got = k6(kw, b)
+            torch.cuda.synchronize()
+            check(k6.launches == before + 1, f"K6 ({wname}) counter rose")
+            want = bsr_spmm.bsr_spmm_plain(kw, b)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"K6 ({wname}) output finite, shape {tuple(want.shape)}")
+            err = max_abs_err(got, want)
+            scale = float(want.abs().max())
+            check(err <= PLAIN_TOL * scale,
+                  f"K6 ({wname}, {tag}) |kernel - plain| {err} <= "
+                  f"{PLAIN_TOL}*{scale}")
+            k6_refs[wname, tag] = oracle.spmm_oracle(w, b.float().cpu().numpy())
+            gate = allclose(got, k6_refs[wname, tag])
+            check(gate, f"K6 ({wname}, {tag}) gate vs f64 oracle")
+            rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
+                        "ms": cuda_time_ms(lambda: k6(kw, b)),
+                        "plain_ms": cuda_time_ms(
+                            lambda: bsr_spmm.bsr_spmm_plain(kw, b))}
+            del got, want
+        # library calls computing the same function (f32 B); the port never
+        # calls either: cuSPARSE CSR through torch.sparse, and PyTorch's BSR
+        # product on the stored blocks where it takes their shape
+        rec["cusparse_csr_ms"] = cuda_time_ms(
+            lambda: vendor.spmm_vendor(w, pb32))
+        try:
+            lib = torch.sparse_bsr_tensor(
+                torch.from_numpy(w.indptr).long(),
+                torch.from_numpy(w.indices).long(),
+                torch.from_numpy(w.blocks), size=w.shape).to(dev)
+            lib_out = lib @ pb32
+            torch.cuda.synchronize()
+            rec["torch_bsr_gate"] = allclose(lib_out, k6_refs[wname, "f32"])
+            rec["torch_bsr_ms"] = cuda_time_ms(lambda: lib @ pb32)
+            del lib, lib_out
+        except Exception as e:  # recorded: the yardstick, not the port
+            rec["torch_bsr_error"] = f"{type(e).__name__}: {e}"[:300]
+        m6, k6_k = kw.shape
+        rec.update(bound(
+            kw.blocks.size * 4 + (kw.indptr.size + kw.indices.size) * 4
+            + k6_k * PRUNED_WIDTH * 4 + m6 * PRUNED_WIDTH * 4,
+            2 * kw.blocks.size * PRUNED_WIDTH, hbm))
+        emit("bsr_kernel_vs_plain", weight=wname, **rec)
+        k6_stats[wname] = rec
+    for rows, cols, block, density, seed, width in K6_SHAPES:
+        w = BSR.random_blocks(rows, cols, block, density, seed)
+        sb = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+            (cols, width)) * 0.05).astype(np.float32)).to(dev)
+        rec = {"block_size": list(block), "nblocks": w.nblocks,
+               "empty_block_rows": int((np.diff(w.indptr) == 0).sum()),
+               "shape": [rows, cols], "width": width}
+        for b in (sb, sb.to(torch.bfloat16)):
+            tag = "f32" if b.dtype == torch.float32 else "bf16"
+            before = k6.launches
+            got = k6(w, b)
+            torch.cuda.synchronize()
+            check(k6.launches == before + 1, f"K6 {block} counter rose")
+            want = bsr_spmm.bsr_spmm_plain(w, b)
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"K6 {block} output finite, shape {tuple(want.shape)}")
+            err = max_abs_err(got, want)
+            scale = float(want.abs().max())
+            check(err <= PLAIN_TOL * scale,
+                  f"K6 {block} w{width} {tag} |kernel - plain| {err} <= "
+                  f"{PLAIN_TOL}*{scale}")
+            gate = allclose(got, oracle.spmm_oracle(w, b.float().cpu().numpy()))
+            check(gate, f"K6 {block} w{width} {tag} gate vs f64 oracle")
+            rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate}
+        emit("bsr_kernel_shapes", **rec)
+    bsr_window = k6.launches
+    emit("bsr_kernel_launches", bsr_stream=bsr_window)
+
     # ---- 5. serving path: tpuspmm_torch.spmm only -----------------------
     for fn, _ in entries.values():
         fn.launches = 0
@@ -411,6 +569,8 @@ def main() -> int:
     vendor_out = vendor.spmm_vendor(a, b32)
     check(allclose(vendor_out, refs[torch.float32]), "vendor gate")
     vendor_ms = cuda_time_ms(lambda: vendor.spmm_vendor(a, b32))
+    csr_bound = bound(report.spmm_min_bytes(a.nnz, *a.shape, WIDTH),
+                      report.spmm_flops(a.nnz, WIDTH), hbm)
     m, k = a.shape
     flops = report.spmm_flops(a.nnz, WIDTH)
     bw = dispatch.thresholds(dev)["panel_hbm_gbps"] * 1e9
@@ -482,21 +642,71 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"{name} kernel launched on the serving path")
 
-    # ---- 6. engine: tpuspmm_torch.cli ------------------------------------
-    counters = {"panel": panel_spmm.spmm_panel, "pair": pair_spmm.spmm_pair,
-                **{n: c for n, (c, *_) in tile_entries.items()}}
-    for counter in counters.values():
+    # ---- 5b. BSR serving path: tpuspmm_torch.spmm only ------------------
+    all_counters = {"panel": panel_spmm.spmm_panel,
+                    "pair": pair_spmm.spmm_pair,
+                    **{n: c for n, (c, *_) in tile_entries.items()},
+                    "bsr_stream": k6}
+    for counter in all_counters.values():
         counter.launches = 0
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+
+    def launched_by(call):
+        before = {n: c.launches for n, c in all_counters.items()}
+        out = call()
+        torch.cuda.synchronize()
+        return out, [n for n, c in all_counters.items()
+                     if c.launches > before[n]]
+
+    for wname, w in weights.items():
+        for b in (pb32, pb16):
+            tag = "f32" if b.dtype == torch.float32 else "bf16"
+            out, ran = launched_by(lambda: tpuspmm_torch.spmm(w, b))
+            check(ran == ["bsr_stream"], f"K6 alone served ({wname}): {ran}")
+            check(dispatch.route(w, b) == "bsr_stream",
+                  f"({wname}) routes to bsr_stream")
+            gate = allclose(out, k6_refs[wname, tag])
+            check(gate, f"BSR main path ({wname}, {tag}) gate")
+            emit("bsr_main_path", weight=wname, b_dtype=tag,
+                 kernel="bsr_stream", gate=gate,
+                 ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(w, b)),
+                 gpu=gpu, power_limit=card.split(",")[-1].strip())
+            del out
+    w4 = BSR.random_blocks(*PRUNED_4X4_DENSIFY)
+    check(bsr_spmm.pack_blocks(w4) is None, "4x4 weight: packing refused")
+    got_route = dispatch.route(w4, pb32)
+    check(got_route == "densify", f"4x4 weight routes to densify "
+                                  f"({got_route})")
+    out, ran = launched_by(lambda: tpuspmm_torch.spmm(w4, pb32))
+    check(ran == [], f"densify launched no hand kernel ({ran})")
+    gate = allclose(out, oracle.spmm_oracle(w4, pb32.cpu().numpy()))
+    check(gate, "4x4 weight densify gate vs f64 oracle")
+    emit("bsr_main_path", weight="4x4_d10", b_dtype="f32", kernel=got_route,
+         gate=gate, stored_nnz=w4.nnz, sparsity=w4.sparsity,
+         ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(w4, pb32)))
+    del out, w4
+    bsr_launches = {n: c.launches for n, c in all_counters.items()}
+    emit("bsr_serving_path_launches", **bsr_launches,
+         note="tpuspmm_torch.spmm calls on BSR weights only")
+    check(bsr_launches["bsr_stream"] > 0, "K6 launched on the serving path")
+
+    # ---- 6. engine: tpuspmm_torch.cli ------------------------------------
+    os.makedirs(PRUNED_DIR, exist_ok=True)
+    weights["a"].save(os.path.join(PRUNED_DIR, "pruned_b128.bsr"))
+    fio.write_dense_text(os.path.join(PRUNED_DIR, "dense.in"),
+                         pb32.cpu().numpy())
+    for counter in all_counters.values():
+        counter.launches = 0
     records_path = os.path.join(REPO, "build", "engine_records.jsonl")
     with open(records_path, "w"):
         pass
     for args in ENGINE_RUNS:
-        out = io.StringIO()
+        out, err = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             status = cli.main(args)
         secs = time.perf_counter() - t0
+        auto = [line.split()[2:] for line in err.getvalue().splitlines()
+                if line.startswith("# auto-selected")]
         recs = [json.loads(line) for line in out.getvalue().splitlines()
                 if line.startswith("{")]
         with open(records_path, "a") as f:
@@ -511,18 +721,31 @@ def main() -> int:
                   ("0", "1"), f"{what} checked or skipped")
             if r.get("verifiedOnly") != "1" and "skipped" not in r:
                 check(r["correct"] == "1", f"{what} passes the gate")
-        emit("engine", args=" ".join(args), seconds=secs, records=[
+        selected = None
+        if "--auto" in args:
+            check(len(auto) == 1, f"engine {args} named its selection")
+            selected = dict(kv.split("=", 1) for kv in auto[0])
+            check(any(r["format"] == selected["format"]
+                      and r["kernelName"] == selected["kernel"]
+                      and r["correct"] == "1" for r in recs),
+                  f"engine {args}: the selected {selected} passes the gate")
+        emit("engine", args=" ".join(os.path.relpath(a, REPO)
+                                     if a == PRUNED_DIR else a
+                                     for a in args),
+             seconds=secs, auto_selected=selected, records=[
             {"fmt": r["format"], "k": int(r["kernelType"]),
              "name": r["kernelName"],
              "correct": r.get("skipped") or r["correct"],
              "ms": r["cudaKernelTimeMs"],
-             **({"verifiedOnly": 1} if r.get("verifiedOnly") else {})}
+             **({"verifiedOnly": 1} if r.get("verifiedOnly") else {}),
+             **({"blockStream": r["blockStream"]}
+                if "blockStream" in r else {})}
             for r in recs])
-    engine_launches = {n: c.launches for n, c in counters.items()}
+    engine_launches = {n: c.launches for n, c in all_counters.items()}
     emit("engine_launches", **engine_launches,
          note="tpuspmm_torch.cli.main runs only; no engine variant "
               "reaches the k-loop schedule, as in the JAX package")
-    for name in ("panel", "pair", "tile", "staged", "cres"):
+    for name in ("panel", "pair", "tile", "staged", "cres", "bsr_stream"):
         check(engine_launches[name] > 0, f"{name} launched by the engine")
 
     # ---- 7. dispatch routes ----------------------------------------------
@@ -610,7 +833,10 @@ def main() -> int:
                 "ms": stats[name]["ms_f32"],
                 "plain_ms": stats[name]["plain_ms_f32"],
                 "ms_bf16": stats[name]["ms_bf16"],
-                "plain_ms_bf16": stats[name]["plain_ms_bf16"]}
+                "plain_ms_bf16": stats[name]["plain_ms_bf16"],
+                **csr_bound, "library_ms": vendor_ms,
+                "library_call": "torch.sparse CSR @ B (cuSPARSE)",
+                "shapes": f"{HEADLINE} w{WIDTH}"}
         if name in ("cres", "cres_kloop"):
             line["note"] = ("the owner walk of tile_chunk_spmm over the "
                             "row-major plan: output bit-identical to K3's")
@@ -618,6 +844,29 @@ def main() -> int:
             line["serving_path_launches"] = launches[name]
             line["entry_point_launches"] = entry_launches[name]
         lines.append(line)
+    ka = k6_stats["a"]
+    lib_ms = ka.get("torch_bsr_ms")
+    lines.append({
+        "name": "bsr_block_spmm", "route": "cuda",
+        "source": "tpuspmm_torch/csrc/bsr_spmm.cu",
+        "replaces": "tpuspmm/kernels/bsr_spmm.py:34",
+        "launches": bsr_launches["bsr_stream"],
+        "launches_window": "serving (tpuspmm_torch.spmm on BSR weights)",
+        "engine_launches": engine_launches["bsr_stream"],
+        "kernel_phase_launches": bsr_window,
+        "max_abs_err": max(r[t]["max_abs_err"] for r in k6_stats.values()
+                           for t in ("f32", "bf16")),
+        "ms": ka["f32"]["ms"], "plain_ms": ka["f32"]["plain_ms"],
+        "ms_bf16": ka["bf16"]["ms"], "plain_ms_bf16": ka["bf16"]["plain_ms"],
+        "bound_ms": ka["bound_ms"], "bound_by": ka["bound_by"],
+        "fma_floor_ms": ka["fma_floor_ms"],
+        "library_ms": lib_ms if lib_ms is not None
+        else ka["cusparse_csr_ms"],
+        "library_call": ("torch.sparse_bsr_tensor @ B" if lib_ms is not None
+                         else "torch.sparse CSR @ B (cuSPARSE)"),
+        "cusparse_csr_ms": ka["cusparse_csr_ms"],
+        "shapes": "weight (a): 4096 x 4096, 128 x 128 blocks at 10%, B "
+                  f"4096 x {PRUNED_WIDTH}"})
     print(json.dumps({"kernels": lines}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,8 @@ def test_import_loads_neither_jax_nor_ml_dtypes():
             "tpuspmm_torch.kernels.cres_spmm, tpuspmm_torch.formats.tiles,"
             "tpuspmm_torch.ops.xla, tpuspmm_torch.ops.exact,"
             "tpuspmm_torch.engine.registry, tpuspmm_torch.engine.runner,"
+            "tpuspmm_torch.engine.select, tpuspmm_torch.kernels.bsr_spmm,"
+            "tpuspmm_torch.kernels.bsr_cuda, tpuspmm_torch.formats.convert,"
             "tpuspmm_torch.cli;"
             "bad = [m for m in ('jax', 'ml_dtypes', 'tpuspmm') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
@@ -131,7 +133,8 @@ def test_vendor_matches_oracle():
     b = np.random.default_rng(5).uniform(-1, 1, (2000, 64)).astype(
         np.float32)
     got = tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method="vendor")
-    ref = tpuspmm_torch.spmm(a_t, b, method="oracle")
+    ref = tpuspmm_torch.spmm(a_t, b, method="oracle",
+                             config=Config(device="cpu"))
     assert isinstance(ref, torch.Tensor)
     assert allclose(got, ref)
     assert max_abs_err(got, ref) < 1e-4
@@ -267,3 +270,118 @@ def test_thresholds_and_roofline_tables():
     assert rec["cudaKernelTimeMs"] == rec["cudaTotalTimeMs"] == 0.5
     assert rec["correct"] == "1"
 
+
+
+def test_host_b_goes_to_the_card_unless_asked(monkeypatch):
+    """A numpy B goes to Config.device, "cuda" by default: with no card
+    spmm raises and never carries on on the CPU; Config(device="cpu") runs
+    there; a torch tensor keeps its own device."""
+    from tpuspmm_torch.ops import api
+
+    _, a_t = synthetic(m=40, k=50, density=0.1, seed=30)
+    b = np.random.default_rng(31).uniform(-1, 1, (50, 8)).astype(np.float32)
+    assert Config().device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpuspmm_torch.spmm(a_t, b)
+    got = tpuspmm_torch.spmm(a_t, b, config=Config(device="cpu"))
+    assert got.device.type == "cpu"
+    assert torch.equal(tpuspmm_torch.spmm(a_t, torch.from_numpy(b)), got)
+    moved = []
+
+    class Probe(torch.Tensor):
+        def to(self, device, *args, **kwargs):
+            moved.append(torch.device(device))
+            return torch.Tensor(self)
+
+    original = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy",
+                        lambda x: original(x).as_subclass(Probe))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    api._as_tensor(b, Config())
+    assert moved == [torch.device("cuda")]
+
+
+def _bsr_pair(args):
+    return tpuspmm.BSR.random_blocks(*args), \
+        tpuspmm_torch.BSR.random_blocks(*args)
+
+
+@pytest.mark.parametrize("args", [(64, 512, (8, 128), 0.15, 3),
+                                  (256, 256, (4, 4), 0.3, 5)])
+def test_spmm_serves_bsr_through_k6(args, monkeypatch):
+    """spmm on a BSR K6 admits, directly or packed, is served by K6 (its
+    plain version here) and equals tpuspmm.spmm's pallas path."""
+    from tpuspmm_torch.kernels import bsr_spmm
+
+    a_j, a_t = _bsr_pair(args)
+    b = np.random.default_rng(32).standard_normal(
+        (a_t.shape[1], 96)).astype(np.float32)
+    served = []
+    plain = bsr_spmm.bsr_spmm_plain
+    monkeypatch.setattr(bsr_spmm, "bsr_spmm_plain",
+                        lambda a, bb: served.append(a) or plain(a, bb))
+    got = tpuspmm_torch.spmm(a_t, torch.from_numpy(b))
+    assert served and all(x is served[0] for x in served)
+    assert served[0].block_size in ((8, 128), (128, 128))
+    ref = np.asarray(tpuspmm.spmm(a_j, b, method="pallas"))
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert allclose(got, oracle.spmm_oracle(a_t, b))
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell", "csc"])
+def test_spmm_on_every_format_matches_tpuspmm(fmt):
+    """The dispatcher and the gather path on BSR, ELL and CSC containers of
+    a corpus dir equal tpuspmm's."""
+    from tpuspmm.formats import convert as jconvert
+
+    d = data_dir("small_210")
+    a_t, a_j = convert.load_sparse(d, "coo"), jconvert.load_sparse(d, "coo")
+    a_t, a_j = convert.to_format(a_t, fmt), jconvert.to_format(a_j, fmt)
+    b = np.random.default_rng(33).uniform(-1, 1, (a_t.shape[1], 20)).astype(
+        np.float32)
+    tb = torch.from_numpy(b)
+    for method, jmethod in (("auto", "pallas"), ("xla", "xla")):
+        got = tpuspmm_torch.spmm(a_t, tb, method=method)
+        ref = np.asarray(tpuspmm.spmm(a_j, b, method=jmethod))
+        assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert allclose(tpuspmm_torch.spmm(a_t, tb, method="vendor"),
+                    oracle.spmm_oracle(a_t, b))
+
+
+def test_bsr_ell_paths_run_with_jax_blocked():
+    """With jax blocked in sys.modules, tpuspmm_torch imports and serves a
+    BSR (K6's plain version), a 4 x 4 BSR (packed) and an ELL on the CPU,
+    and its engines run, at the gate against the oracle."""
+    code = """
+import sys
+sys.modules["jax"] = None
+import numpy as np, torch
+import tpuspmm_torch
+from tpuspmm_torch.config import Config
+from tpuspmm_torch.engine import registry
+from tpuspmm_torch.formats import BSR, convert
+from tpuspmm_torch.ops import oracle
+from tpuspmm_torch.utils.compare import allclose
+cpu = Config(device="cpu")
+for a in (BSR.random_blocks(64, 512, (8, 128), 0.3, seed=1),
+          BSR.random_blocks(256, 256, (4, 4), 0.3, seed=5),
+          convert.to_format(BSR.random_blocks(64, 256, (8, 8), 0.3, seed=2),
+                            "ell")):
+    b = np.random.default_rng(0).standard_normal((a.shape[1], 16)).astype(
+        np.float32)
+    ref = oracle.spmm_oracle(a, b)
+    assert allclose(tpuspmm_torch.spmm(a, b, config=cpu), ref)
+    engine = registry.get_engine(a.format_name)
+    for v in engine.variants:
+        if v.admissible is None or v.admissible(a, torch.from_numpy(b), cpu):
+            assert allclose(v.fn(a, torch.from_numpy(b), cpu), ref), v.name
+assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m.startswith("tpuspmm.") or m == "tpuspmm"
+               for m in sys.modules)
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", \
+        res.stdout + res.stderr

@@ -27,6 +27,7 @@ import tpuspmm.cli as jcli
 from tpuspmm.config import default_config as jdefault_config
 from tpuspmm.engine import registry as jregistry
 from tpuspmm.formats import convert as jconvert
+from tpuspmm.kernels import bsr_spmm as jk6
 from tpuspmm.kernels import cres_spmm as jk5
 from tpuspmm.kernels import csr_vmem as jk4
 from tpuspmm.kernels import dispatch as jdispatch
@@ -57,7 +58,7 @@ def load(name, fmt="csr"):
     return _LOADED[name, fmt]
 
 
-@pytest.mark.parametrize("fmt", ["csr", "coo"])
+@pytest.mark.parametrize("fmt", ["csr", "coo", "bsr", "ell"])
 def test_registry_matches_jax(fmt):
     mine = registry.get_engine(fmt)
     theirs = jregistry.get_engine(fmt)
@@ -71,8 +72,13 @@ def test_registry_matches_jax(fmt):
 
 @pytest.mark.parametrize("fmt", ["bsr", "ell"])
 def test_later_engines_raise(fmt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_engine(fmt)
+    """The BSR and ELL engines, a later slice before, are built now, with
+    JAX's variant counts; only a format no engine serves raises."""
+    assert registry.get_engine(fmt).num_kernels == \
+        {"bsr": 7, "ell": 8}[fmt] == jregistry.get_engine(fmt).num_kernels
+    assert fmt in registry.FORMATS
+    with pytest.raises(KeyError):
+        registry.get_engine("dia")
 
 
 SHARED = ("_gather_ok", "_densify_ok", "_panel_ok", "_pair_ok",
@@ -111,6 +117,7 @@ def jax_route(monkeypatch):
         return call
 
     for mod, attr, tag in ((jexact, "spmm_exact", "exact"),
+                           (jk6, "spmm_bsr_stream", "bsr_stream"),
                            (jdispatch, "_densify", "densify"),
                            (jpanel, "spmm_panel", "panel"),
                            (jpair, "spmm_pair", "pair"),
@@ -219,8 +226,20 @@ def test_cli_matches_jax_cli(capsys, small32_dir):
 @pytest.mark.parametrize("flag", ["--bsr", "--ell", "--auto", "--tuned",
                                   "--trace=out"])
 def test_cli_later_flags_exit_2(flag, capsys, small32_dir):
-    assert cli.main(["--csr", "-d", small32_dir, flag]) == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    """--tuned and --trace still exit 2 naming ROADMAP; --bsr, --ell and
+    --auto, ported now, run (here on the CPU) and pass the gate."""
+    args = ["--csr", "-d", small32_dir, flag]
+    if flag in ("--tuned", "--trace=out"):
+        assert cli.main(args) == 2
+        assert "ROADMAP" in capsys.readouterr().err
+        return
+    assert cli.main(args + ["--device", "cpu", "--repeats", "1",
+                            "--no-vendor"]) == 0
+    recs = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    fmts = {"--bsr": {"csr", "bsr"}, "--ell": {"csr", "ell"},
+            "--auto": {"csr"}}[flag]
+    assert {r["format"] for r in recs} == fmts
+    assert all(r["correct"] == "1" for r in recs)
 
 
 def test_cli_needs_its_device(monkeypatch, capsys, small32_dir):
@@ -300,3 +319,189 @@ def test_python_m_cli_runs_one_kernel():
     (rec,) = [json.loads(x) for x in res.stdout.splitlines()]
     assert (rec["kernelType"], rec["kernelName"], rec["correct"]) == \
         ("5", "pallas_c_resident", "1")
+
+
+# ---------------------------------------------------------------------------
+# the BSR and ELL engines, their routes and format selection
+# ---------------------------------------------------------------------------
+
+BSR_SHARED = SHARED + ("_bsr_gather_ok",)
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell"])
+@pytest.mark.parametrize("name", ["small_32x32", "small_210", "medium_2048",
+                                  "medium_4096"])
+def test_bsr_ell_admission_agrees(name, fmt):
+    a_j, a_t = load(name, fmt)
+    jconfig = jdefault_config()
+    for n in (256, 600_000):
+        b_j = np.empty((a_j.shape[1] if n == 256 else 1, n), np.float32)
+        b_t = torch.empty(b_j.shape)
+        for pred in (BSR_SHARED if fmt == "bsr" else SHARED):
+            if n != 256 and pred in ("_panel_ok", "_pair_ok"):
+                continue
+            assert getattr(registry, pred)(a_t, b_t, Config()) == \
+                getattr(jregistry, pred)(a_j, b_j, jconfig), (pred, n)
+
+
+def _engine_cases(fmt):
+    """(JAX container, port container) pairs: small_32x32 and a random
+    BSR in (8, 128) blocks with empty block rows (its ELL conversion for
+    the ELL engine)."""
+    from tpuspmm.formats import BSR as JBSR
+    from tpuspmm_torch.formats import BSR
+
+    args = (48, 256, (8, 128), 0.3, 4)
+    blocks = (JBSR.random_blocks(*args), BSR.random_blocks(*args))
+    if fmt == "ell":
+        blocks = (jconvert.to_format(blocks[0], "ell"),
+                  convert.to_format(blocks[1], "ell"))
+    return [load("small_32x32", fmt), blocks]
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "ell"])
+def test_bsr_ell_variants_match_jax(fmt):
+    """Every variant of the port's engine against the JAX variant of the
+    same number on the same operands, within f32 summation order
+    (1e-5·max|C|), and at the gate; admission agrees."""
+    from tpuspmm_torch.ops import oracle
+
+    mine, theirs = registry.get_engine(fmt), jregistry.get_engine(fmt)
+    jconfig = jdefault_config()
+    for a_j, a_t in _engine_cases(fmt):
+        b = np.random.default_rng(21).uniform(
+            -1, 1, (a_t.shape[1], 40)).astype(np.float32)
+        tb = torch.from_numpy(b)
+        ref = oracle.spmm_oracle(a_t, b)
+        for v in mine.variants:
+            jv = theirs.variant(v.number)
+            ok = v.admissible is None or v.admissible(a_t, tb, Config())
+            assert ok == (jv.admissible is None
+                          or jv.admissible(a_j, b, jconfig)), v.name
+            if not ok:
+                continue
+            got = v.fn(a_t, tb, Config()).numpy()
+            want = np.asarray(jv.fn(a_j, b, jconfig))
+            scale = max(np.abs(want).max(), 1e-30)
+            assert np.abs(got - want).max() <= 1e-5 * scale, v.name
+            assert allclose(got, ref), v.name
+
+
+def test_cli_bsr_ell_matches_jax_cli(capsys, small32_dir):
+    args = ["--bsr", "--ell", "-d", small32_dir, "--repeats", "1"]
+    assert jcli.main(args) == 0
+    theirs = records(capsys.readouterr().out)
+    assert cli.main(args + ["--device", "cpu"]) == 0
+    mine = capsys.readouterr().out
+    assert records(mine) == theirs
+    assert len(theirs) == 2 + 7 + 8 + 2
+    recs = [json.loads(x) for x in mine.splitlines()]
+    bsr = [r for r in recs if r["format"] == "bsr"]
+    # records carry the BSR's stored-entry sparsity, as JAX's do
+    assert {r["sparsity"] for r in bsr} == {jconvert.load_sparse(
+        small32_dir, "bsr").sparsity}
+    (stream,) = [r for r in bsr if r["kernelName"] == "pallas_block_stream"]
+    assert stream["blockStream"] == "tile"  # 4 x 4 blocks, packing refused
+
+
+@pytest.mark.parametrize("name", DIRS)
+def test_bsr_ell_routes_match_jax(name, jax_route, jax_constants):
+    """The dispatcher's route on the BSR ((4, 4) blocks, halved where the
+    shape needs it) and ELL containers of every data/ dir is the path
+    JAX's dispatcher takes; a 4 x 4 BSR never reaches K6 (packing is
+    refused: see the block-stream tests)."""
+    for fmt in ("bsr", "ell"):
+        a_j, a_t = load(name, fmt)
+        mine = dispatch.route(a_t, torch.zeros(a_t.shape[1], 256))
+        assert mine == jax_route(a_j, 256), fmt
+        assert mine != "bsr_stream"
+
+
+@pytest.mark.parametrize("args,packed", [
+    ((64, 512, (8, 128), 0.4, 0), False), ((256, 256, (4, 4), 0.3, 5), True),
+    ((256, 256, (4, 4), 0.002, 7), False)])
+def test_bsr_stream_route_matches_jax(args, packed, jax_route,
+                                      jax_constants):
+    """K6 serves a BSR whose blocks it admits, and a 4 x 4 BSR through its
+    packed copy; where packing is refused the route goes on as JAX's."""
+    from tpuspmm.formats import BSR as JBSR
+    from tpuspmm_torch.formats import BSR
+    from tpuspmm_torch.kernels import bsr_spmm
+
+    a_t, a_j = BSR.random_blocks(*args), JBSR.random_blocks(*args)
+    kind, served = dispatch._resolve(a_t, torch.zeros(a_t.shape[1], 64))
+    assert kind == jax_route(a_j, 64)
+    if args[2] == (8, 128) or packed:
+        assert kind == "bsr_stream"
+        assert served is (bsr_spmm.pack_blocks(a_t) if packed else a_t)
+    else:
+        assert kind != "bsr_stream"
+
+
+def test_select_format_matches_jax_except_residency():
+    """select_format agrees with JAX's on every data/ dir but where JAX's
+    8 MiB VMEM rule refuses the whole C: there JAX selects the tile kernel
+    and the port, whose rule is one accumulator in shared memory,
+    C-resident.  Only large_20000 differs at width 256."""
+    from tpuspmm.engine import select as jselect
+    from tpuspmm_torch.engine import select
+
+    differ = {}
+    for name in DIRS:
+        a_j, a_t = load(name, "coo")
+        mine, theirs = select.select_format(a_t), jselect.select_format(a_j)
+        assert vars(select.analyze(a_t)) == vars(jselect.analyze(a_j))
+        if mine != theirs:
+            differ[name] = (mine, theirs)
+    assert differ == {"large_20000": (("csr", "pallas_c_resident"),
+                                      ("csr", "pallas_tile_mxu"))}
+
+
+def test_select_and_auto_spmm_match_jax():
+    """Dense blocks select BSR block streaming in both packages; auto_spmm
+    runs the selected variant (K6's plain version here) and equals JAX's
+    result."""
+    from tpuspmm.engine import select as jselect
+    from tpuspmm.formats import BSR as JBSR
+    from tpuspmm_torch.engine import select
+    from tpuspmm_torch.formats import BSR
+
+    args = (64, 512, (8, 128), 0.4, 0)
+    cases = [(JBSR.random_blocks(*args), BSR.random_blocks(*args)),
+             load("small_32x32", "csr")]
+    for a_j, a_t in cases:
+        stats_t, stats_j = select.analyze(a_t), jselect.analyze(a_j)
+        assert vars(stats_t) == vars(stats_j)
+        b = np.random.default_rng(22).uniform(-1, 1, (a_t.shape[1], 16)) \
+            .astype(np.float32)
+        got, fmt, name = select.auto_spmm(a_t, torch.from_numpy(b))
+        want, jfmt, jname = jselect.auto_spmm(a_j, b)
+        assert (fmt, name) == (jfmt, jname)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5 * np.abs(want).max())
+    assert select.select_format(cases[0][1]) == \
+        ("bsr", "pallas_block_stream")
+
+
+def test_cli_auto_on_a_bsr_only_dir(tmp_path, capsys):
+    """--auto reads a directory with only a `.bsr` and `dense.in` (the
+    JAX CLI needs a `.coo` or `.mtx`), selects BSR for 128 x 128 blocks and
+    runs the BSR engine, whose block-stream record is K6's."""
+    from tpuspmm_torch.formats import BSR
+    from tpuspmm_torch.formats import io as fio
+
+    a = BSR.random_blocks(256, 256, (128, 128), 0.5, seed=2)
+    a.save(str(tmp_path / "w.bsr"))
+    fio.write_dense_text(str(tmp_path / "dense.in"),
+                         np.random.default_rng(23).standard_normal(
+                             (256, 24)).astype(np.float32))
+    assert cli.main(["--auto", "-d", str(tmp_path), "--device", "cpu",
+                     "--repeats", "1"]) == 0
+    out = capsys.readouterr()
+    assert "auto-selected format=bsr kernel=pallas_block_stream" in out.err
+    recs = [json.loads(x) for x in out.out.splitlines()]
+    assert {r["format"] for r in recs} == {"bsr"}
+    assert all(r["correct"] == "1" for r in recs if "skipped" not in r)
+    (stream,) = [r for r in recs if r["kernelName"] == "pallas_block_stream"]
+    assert stream["blockStream"] == "k6"
+    assert stream["sparsity"] == a.sparsity == a.nblocks / 4

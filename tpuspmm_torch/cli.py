@@ -1,4 +1,4 @@
-"""tpuspmm_torch's command line: the CSR and COO engines.
+"""tpuspmm_torch's command line: the CSR, COO, BSR and ELL engines.
 
 Counterpart of ``tpuspmm/cli.py`` (the reference's ``cuspmm``,
 reference/src/main.cu:19-217): per-format flags, a data directory with the
@@ -7,13 +7,17 @@ status 1 when a variant that is not verified-only fails the gate.
 
 ``--device`` (default ``cuda``) is where the engine runs; with no such
 device the command exits non-zero and never moves to the CPU by itself.
-The BSR and ELL engines, format selection, autotuning and tracing are a
-later slice of the port: their flags exit 2 naming ROADMAP.
+``--auto`` runs the engine of the format that ``engine/select.py`` picks
+for the directory's matrix (read from its `.coo` or `.mtx`, else from the
+first of its `.csr`, `.bsr` and ELL files), and names the pick on stderr.
+Autotuning and tracing are not ported yet: their flags exit 2 naming
+ROADMAP.
 
 Usage::
 
     python -m tpuspmm_torch.cli --csr --coo -d data/large_25605 --width 256
-    python -m tpuspmm_torch.cli --csr -d data/medium_4096 --b-dtype bf16
+    python -m tpuspmm_torch.cli --bsr --ell -d data/medium_4096
+    python -m tpuspmm_torch.cli --auto -d data/large_25605 --width 256
 """
 
 from __future__ import annotations
@@ -25,9 +29,6 @@ import sys
 import numpy as np
 
 _NOT_YET = {
-    "bsr": "the BSR engine (ROADMAP Queue 2 K6)",
-    "ell": "the ELL engine (ROADMAP Queue 2 K6)",
-    "auto": "format selection (ROADMAP Queue 1 item 7)",
     "tuned": "the verified autotune (ROADMAP Queue 1 item 7)",
     "trace": "profiler tracing (ROADMAP Queue 1)",
 }
@@ -40,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "(reference: cuspmm --csr --coo -d DIR)")
     p.add_argument("--csr", action="store_true", help="run the CSR engine")
     p.add_argument("--coo", action="store_true", help="run the COO engine")
+    p.add_argument("--bsr", action="store_true", help="run the BSR engine")
+    p.add_argument("--ell", action="store_true", help="run the ELL engine")
+    p.add_argument("--auto", action="store_true",
+                   help="run the engine of the format the selection picks")
     p.add_argument("-d", "--data-dir", required=True,
                    help="data directory (reference layout) or corpus name")
     p.add_argument("--width", type=int, default=None,
@@ -63,9 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append JSON records to this file")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
-    for flag in ("bsr", "ell", "auto", "tuned"):
-        p.add_argument(f"--{flag}", action="store_true",
-                       help=f"not yet ported: {_NOT_YET[flag]}")
+    p.add_argument("--tuned", action="store_true",
+                   help=f"not yet ported: {_NOT_YET['tuned']}")
     p.add_argument("--trace", type=str, default=None,
                    help=f"not yet ported: {_NOT_YET['trace']}")
     return p
@@ -97,10 +101,23 @@ def _run_one_kernel(engine, number: int, a, b, config, device,
         **common)
 
 
+def _probe(data: str):
+    """The matrix ``--auto`` selects for: from the `.coo` or `.mtx` as the
+    JAX package's CLI reads it, else from the first of `.csr`, `.bsr` and
+    the ELL pair the directory holds."""
+    from tpuspmm_torch.formats import convert
+
+    found = convert.discover(data)
+    for fmt, key in (("coo", "coo"), ("coo", "mtx"), ("csr", "csr"),
+                     ("bsr", "bsr"), ("ell", "ell_rowind")):
+        if found[key]:
+            return convert.load_sparse(data, fmt)
+    raise FileNotFoundError(f"no sparse operand in {data}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    asked = [f for f in ("bsr", "ell", "auto", "tuned", "trace")
-             if getattr(args, f)]
+    asked = [f for f in ("tuned", "trace") if getattr(args, f)]
     if asked:
         print(f"--{asked[0]} is not yet ported to tpuspmm_torch: "
               f"{_NOT_YET[asked[0]]}", file=sys.stderr)
@@ -135,9 +152,17 @@ def main(argv=None) -> int:
             print(f"data directory {args.data_dir!r} does not exist",
                   file=sys.stderr)
             return 2
-    fmts = [f for f, on in (("csr", args.csr), ("coo", args.coo)) if on]
+    fmts = [f for f in ("csr", "coo", "bsr", "ell") if getattr(args, f)]
+    if args.auto:
+        from tpuspmm_torch.engine.select import select_format
+
+        fmt, kernel = select_format(_probe(data), device=device)
+        print(f"# auto-selected format={fmt} kernel={kernel}",
+              file=sys.stderr)
+        fmts = [fmt]
     if not fmts:
-        print("no format requested (--csr/--coo)", file=sys.stderr)
+        print("no format requested (--csr/--coo/--bsr/--ell/--auto)",
+              file=sys.stderr)
         return 2
 
     config = default_config()

@@ -38,9 +38,10 @@ class Config:
     # geometry cost model; an int pins it.
     panel_strips: Optional[int] = None
 
-    # Device for a dense operand passed as a host (numpy) array.  None keeps
-    # it on the host; a torch tensor always stays on its own device.
-    device: Optional[str] = None
+    # Device for a dense operand passed as a host (numpy) array: the card
+    # unless the caller asks for the CPU (``Config(device="cpu")``).  A
+    # torch tensor always stays on its own device.
+    device: str = "cuda"
 
 
 _default: Optional[Config] = None

@@ -1,4 +1,4 @@
-"""Per-format kernel registries for CSR and COO.
+"""Per-format kernel registries: CSR, COO, BSR and ELL.
 
 Counterpart of ``tpuspmm/engine/registry.py``, with its numbering (the
 reference's): -1 the vendor baseline (torch.sparse, cuSPARSE on the card),
@@ -15,7 +15,9 @@ C-resident variants are the card's (``kernels/csr_vmem.py``,
 ``kernels/cres_spmm.py``): they admit more than the JAX package's v5e VMEM
 budget does, and the runner's records carry the rule.
 
-The BSR and ELL engines are a later slice of the port.
+The BSR and ELL variants other than BSR's einsum and block stream run the
+CSR / COO kernels on the container's COO view (a BSR's keeps the explicit
+zeros of its stored blocks), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,9 +92,29 @@ def _xla(a, b, config):
 
 
 def _gather_ok(a, b, config):
-    """The gather path's (nnz, n) rows stay within GATHER_MAX_BYTES (the
-    JAX package's rule)."""
-    return a.nnz * round_up(int(b.shape[1]), 128) * 4 <= GATHER_MAX_BYTES
+    """The gather path's gathered rows stay within GATHER_MAX_BYTES (the
+    JAX package's rule): nnz of them, or for ELL every slot, padding
+    included."""
+    count = a.rowind.size if a.format_name == "ell" else a.nnz
+    return count * round_up(int(b.shape[1]), 128) * 4 <= GATHER_MAX_BYTES
+
+
+def _bsr_gather_ok(a, b, config):
+    """The block einsum's gathered (nblocks, bw, n) B panels stay within
+    GATHER_MAX_BYTES (the JAX package's rule)."""
+    return (a.nblocks * a.block_size[1] * round_up(int(b.shape[1]), 128)
+            * 4 <= GATHER_MAX_BYTES)
+
+
+def _bsr_stream(a, b, config):
+    """K6 on a block size it admits, else on the 128 × 128 packed copy,
+    else the tile kernel (the JAX package's fall-back order)."""
+    from tpuspmm_torch.kernels import bsr_spmm
+
+    served = bsr_spmm.stream_operand(a)
+    if served is None:
+        return _tile(a, b, config)
+    return bsr_spmm.spmm_bsr_stream(served, b)
 
 
 def _tile(a, b, config):
@@ -288,21 +310,69 @@ def build_engines() -> Dict[str, Engine]:
               "densify once (cached) + one f32 matmul per call",
               admissible=_densify_ok),
         ]),
+        "bsr": Engine("bsr", [
+            V(1, "xla_block_einsum", _xla,
+              "gathered B panels, one batched f32 product, index_add_ over "
+              "block rows (≙ K6, spmm_bsr_k1.cu:8-41)",
+              admissible=_bsr_gather_ok),
+            V(2, "pallas_block_stream", _bsr_stream,
+              "one owner block per (block row, rows, 64 columns) streams "
+              "the row's stored blocks (CUDA, bsr_spmm.cu); other block "
+              "sizes packed to 128 x 128, else the tile kernel"),
+            V(3, "pallas_tile_mxu", _tile,
+              "tile-plan kernel over the blocks' entries (CUDA, "
+              "chunk_spmm.cu; small-block fallback)"),
+            V(4, "pallas_panel", _panel,
+              "plan-time re-blocking into strips (CUDA, strip_spmm.cu; any "
+              "stored block size)", admissible=_panel_ok),
+            V(5, "pallas_pair", _pair,
+              "run-length panels (CUDA, strip_spmm.cu)",
+              admissible=_pair_ok),
+            V(6, "xla_compensated", _compensated,
+              "float64 accumulation, float32 result (deterministic gate "
+              "for extreme values)", admissible=_compensated_ok),
+            V(7, "xla_densify_matmul", _densify_matmul,
+              "densify once (cached) + one f32 matmul per call: uniformly "
+              "scattered 4x4 pruning is plan-dense past ~5% block density",
+              admissible=_densify_ok),
+        ]),
+        "ell": Engine("ell", [
+            V(1, "xla_segment_sum", _xla,
+              "column-slot scatter: gather of B rows + index_add_ (≙ K7/K8 "
+              "atomicAdd scatter, spmm_ell_k1.cu:11-35)",
+              admissible=_gather_ok),
+            V(2, "pallas_tile_mxu", _tile,
+              "tile-plan kernel over the ELL slots (CUDA, chunk_spmm.cu)"),
+            V(3, "pallas_c_resident", _cres,
+              "k-major chunk layout, one owner block per output tile (CUDA, "
+              "chunk_spmm.cu)", admissible=_cres_ok),
+            V(4, "pallas_panel", _panel,
+              "plan-time block densification into strips (CUDA, "
+              "strip_spmm.cu)", admissible=_panel_ok),
+            V(5, "pallas_pair", _pair,
+              "run-length panels (CUDA, strip_spmm.cu)",
+              admissible=_pair_ok),
+            V(6, "pallas_staged_b", _staged,
+              "B stripe staged in shared memory over the ELL slot chunks "
+              "(CUDA, chunk_spmm.cu; ≙ K8 staged-B, spmm_ell_k2.cu:11-54)",
+              admissible=_staged_ok),
+            V(7, "xla_compensated", _compensated,
+              "float64 accumulation, float32 result (deterministic gate "
+              "for extreme values)", admissible=_compensated_ok),
+            V(8, "xla_densify_matmul", _densify_matmul,
+              "densify once (cached) + one f32 matmul per call",
+              admissible=_densify_ok),
+        ]),
     }
 
 
 _ENGINES: Optional[Dict[str, Engine]] = None
-FORMATS = ("csr", "coo")
+FORMATS = ("csr", "coo", "bsr", "ell")
 
 
 def get_engine(fmt: str) -> Engine:
-    """The CSR or COO engine; BSR and ELL raise (a later slice)."""
+    """The engine of ``fmt`` (one of FORMATS)."""
     global _ENGINES
-    fmt = fmt.lower()
-    if fmt in ("bsr", "ell"):
-        raise NotImplementedError(
-            f"the {fmt} engine is not yet ported to tpuspmm_torch: it needs "
-            "the BSR / ELL formats and the K6 kernel (ROADMAP Queue 2 K6)")
     if _ENGINES is None:
         _ENGINES = build_engines()
-    return _ENGINES[fmt]
+    return _ENGINES[fmt.lower()]

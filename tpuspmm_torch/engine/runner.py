@@ -43,12 +43,18 @@ _RESIDENCY = {"pallas_staged_b": "staged", "pallas_c_resident": "cres",
 
 def _provenance(name: str, a, b: torch.Tensor, config) -> dict:
     """What a panel / pair record served (its resolved geometry, a cache
-    hit after the variant's own run) and the residency rule a staged or
-    C-resident record was admitted by."""
+    hit after the variant's own run), what a block-stream record ran on
+    (K6 on the stored blocks, K6 on the packed copy, or the tile kernel)
+    and the residency rule a staged or C-resident record was admitted
+    by."""
     from tpuspmm_torch.formats.tiles import plan_from_container
-    from tpuspmm_torch.kernels import (cres_spmm, csr_vmem, pair_spmm,
-                                       panel_spmm)
+    from tpuspmm_torch.kernels import (bsr_spmm, cres_spmm, csr_vmem,
+                                       pair_spmm, panel_spmm)
 
+    if name == "pallas_block_stream":
+        served = bsr_spmm.stream_operand(a)
+        return {"blockStream": ("tile" if served is None else
+                                "k6" if served is a else "k6_packed")}
     n_pad = round_up(int(b.shape[1]), 128)
     family = _GEOM_FAMILIES.get(name)
     if family == "panel":

@@ -1,6 +1,6 @@
-"""Format conversion and data-directory discovery for CSR and COO
-(counterpart of ``tpuspmm/formats/convert.py``; the other formats are a
-later slice of the port)."""
+"""Format conversion and data-directory discovery (counterpart of
+``tpuspmm/formats/convert.py``): the five formats, the reference's file
+kinds, and direct ``.mtx`` loading."""
 
 from __future__ import annotations
 
@@ -9,29 +9,35 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from tpuspmm_torch.formats.csr import CSR
+from tpuspmm_torch.formats.bsr import BSR
 from tpuspmm_torch.formats.coo import COO
+from tpuspmm_torch.formats.csc import CSC
+from tpuspmm_torch.formats.csr import CSR
 from tpuspmm_torch.formats.dense import DenseMatrix
+from tpuspmm_torch.formats.ell import ELL
 from tpuspmm_torch.formats import io as fio
 
+_FROM_SCIPY = {"csr": CSR.from_scipy, "csc": CSC.from_scipy,
+               "coo": COO.from_scipy, "ell": ELL.from_scipy}
 
-def to_format(matrix, fmt: str):
-    """Convert a container, scipy matrix or dense ndarray to `fmt`
-    ("csr" or "coo")."""
+
+def to_format(matrix, fmt: str, block_size=(4, 4)):
+    """Convert a container, scipy matrix or dense ndarray to `fmt` ("csr",
+    "csc", "coo", "bsr" with ``block_size``, or "ell")."""
     import scipy.sparse
 
-    if isinstance(matrix, (CSR, COO)):
+    if isinstance(matrix, (CSR, CSC, COO, BSR, ELL)):
         sp = matrix.to_scipy()
     elif scipy.sparse.issparse(matrix):
         sp = matrix
     else:
         sp = scipy.sparse.csr_matrix(np.asarray(matrix))
     fmt = fmt.lower()
-    if fmt == "csr":
-        return CSR.from_scipy(sp)
-    if fmt == "coo":
-        return COO.from_scipy(sp)
-    raise ValueError(f"unknown or not yet ported format {fmt!r}")
+    if fmt == "bsr":
+        return BSR.from_scipy(sp, block_size=block_size)
+    if fmt in _FROM_SCIPY:
+        return _FROM_SCIPY[fmt](sp)
+    raise ValueError(f"unknown format {fmt!r}")
 
 
 def discover(data_dir: str) -> Dict[str, Optional[str]]:
@@ -64,17 +70,45 @@ def discover(data_dir: str) -> Dict[str, Optional[str]]:
     return found
 
 
-def load_sparse(data_dir: str, fmt: str):
-    """Load the sparse operand of `data_dir` as "csr" or "coo", preferring
-    the pre-converted text file, else converting the `.mtx`."""
+def write_all_formats(a, data_dir: str, stem: str,
+                      block_size: int = 4) -> list:
+    """Write a container to `data_dir` as `.csr`, `.coo`, `.bsr` (square
+    blocks of the largest side ≤ block_size dividing the shape) and the
+    column-major ELL pair; returns the files written."""
+    import scipy.sparse
+
+    sp = scipy.sparse.coo_matrix(a.to_scipy())
+    base = os.path.join(data_dir, stem)
+    CSR.from_scipy(sp).save(base + ".csr")
+    COO.from_scipy(sp).sort_by_row().save(base + ".coo")
+    bs = block_size
+    while bs > 1 and (sp.shape[0] % bs or sp.shape[1] % bs):
+        bs -= 1
+    BSR.from_scipy(sp, block_size=(bs, bs)).save(base + ".bsr")
+    ELL.from_scipy(sp).save(base + "_rowind.ell",
+                            base + "_values_colmajor.ell")
+    return [base + ext for ext in (".csr", ".coo", ".bsr", "_rowind.ell",
+                                   "_values_colmajor.ell")]
+
+
+def load_sparse(data_dir: str, fmt: str, block_size=(4, 4)):
+    """Load the sparse operand of `data_dir` in `fmt`, preferring the
+    pre-converted text file, else converting the `.mtx` (BSR at
+    ``block_size``)."""
     f = discover(data_dir)
     fmt = fmt.lower()
     if fmt == "csr" and f["csr"]:
         return CSR.from_file(f["csr"])
+    if fmt == "csc" and f["csc"]:
+        return CSC.from_file(f["csc"])
     if fmt == "coo" and f["coo"]:
         return COO.from_file(f["coo"])
+    if fmt == "bsr" and f["bsr"]:
+        return BSR.from_file(f["bsr"])
+    if fmt == "ell" and f["ell_rowind"] and f["ell_values"]:
+        return ELL.from_file(f["ell_rowind"], f["ell_values"])
     if f["mtx"]:
-        return to_format(fio.read_mtx(f["mtx"]), fmt)
+        return to_format(fio.read_mtx(f["mtx"]), fmt, block_size=block_size)
     raise FileNotFoundError(f"no {fmt} (or .mtx) input in {data_dir}")
 
 

@@ -67,3 +67,7 @@ class COO(MatrixBase):
         from tpuspmm_torch.formats.csr import CSR
 
         return CSR.from_scipy(self.to_scipy())
+
+    def save(self, path: str):
+        fio.write_coo_text(path, self.shape, self.rows, self.cols,
+                           self.values)

@@ -50,3 +50,7 @@ class CSR(MatrixBase):
         from tpuspmm_torch.formats.coo import COO
 
         return COO.from_scipy(self.to_scipy().tocoo())
+
+    def save(self, path: str):
+        fio.write_csr_text(path, self.shape, self.indptr, self.indices,
+                           self.values)

@@ -1,12 +1,19 @@
-"""Readers for the reference's text formats and MatrixMarket.
+"""Readers and writers for the reference's text formats and MatrixMarket.
 
 - ``.csr``     — header "rows cols nnz"; indptr line; colidx line; values line
 - ``.coo``     — header "rows cols nnz"; nnz lines "row col value"
+- ``.bsr``     — header "rows cols nnz brows bcols nblocks"; indptr line;
+  block-column line; nblocks lines of brows·bcols row-major block values
+- ELL pair     — ``*_rowind.ell``: header "rows cols nnz maxColNnz", then
+  one line of maxColNnz row indices (-1 padding) per column; headerless
+  ``*_values_colmajor.ell``, one line of values per column.  The row-major
+  pair (``*_colind.ell`` + ``*_values.ell``) is written only.
 - ``dense.in`` — header "rows cols [ignored]"; rows lines of cols values
 - ``.mtx``     — MatrixMarket, through scipy
 
 Counterpart of ``tpuspmm/formats/io.py`` without its native fast path: the
-token stream is parsed by numpy.
+token stream is parsed by numpy.  The writers produce the JAX package's
+bytes.
 """
 
 from __future__ import annotations
@@ -46,6 +53,29 @@ def read_coo_text(path: str):
     return (rows, cols), r, c, v
 
 
+def read_bsr_text(path: str):
+    rows, cols, nnz, brows, bcols, nblocks = _header(path, 6)
+    body = _numeric_body(path, 1)
+    nbr = rows // brows
+    indptr = body[: nbr + 1].astype(np.int32)
+    indices = body[nbr + 1: nbr + 1 + nblocks].astype(np.int32)
+    start = nbr + 1 + nblocks
+    blocks = (body[start: start + nblocks * brows * bcols]
+              .astype(np.float32).reshape(nblocks, brows, bcols))
+    return (rows, cols), nnz, (brows, bcols), indptr, indices, blocks
+
+
+def read_ell_text(rowind_path: str, values_path: str):
+    """The column-major ELL pair."""
+    rows, cols, nnz, max_col_nnz = _header(rowind_path, 4)
+    size = cols * max_col_nnz
+    rowind = (_numeric_body(rowind_path, 1)[:size].astype(np.int32)
+              .reshape(cols, max_col_nnz))
+    values = (_numeric_body(values_path, 0)[:size].astype(np.float32)
+              .reshape(cols, max_col_nnz))
+    return (rows, cols), nnz, max_col_nnz, rowind, values
+
+
 def read_dense_text(path: str) -> np.ndarray:
     rows, cols = _header(path, 2)
     body = _numeric_body(path, 1)
@@ -59,3 +89,72 @@ def read_mtx(path: str):
     import scipy.io
 
     return scipy.io.mmread(path)
+
+
+def _write_int_line(f, arr) -> None:
+    f.write(" ".join(map(str, np.asarray(arr).tolist())) + "\n")
+
+
+def write_csr_text(path: str, shape, indptr, indices, values):
+    with open(path, "w") as f:
+        f.write(f"{shape[0]} {shape[1]} {len(values)}\n")
+        _write_int_line(f, indptr)
+        _write_int_line(f, indices)
+        np.savetxt(f, np.asarray(values)[None, :], fmt="%.9g")
+
+
+def write_coo_text(path: str, shape, rows, cols, values):
+    """Row-major sorted triplets."""
+    order = np.lexsort((cols, rows))
+    with open(path, "w") as f:
+        f.write(f"{shape[0]} {shape[1]} {len(values)}\n")
+        np.savetxt(f, np.column_stack([np.asarray(rows)[order],
+                                       np.asarray(cols)[order],
+                                       np.asarray(values)[order]]),
+                   fmt=["%d", "%d", "%.9g"])
+
+
+def write_bsr_text(path: str, shape, nnz, block_size, indptr, indices,
+                   blocks):
+    brows, bcols = block_size
+    with open(path, "w") as f:
+        f.write(f"{shape[0]} {shape[1]} {nnz} {brows} {bcols} "
+                f"{len(indices)}\n")
+        _write_int_line(f, indptr)
+        _write_int_line(f, indices)
+        flat = (np.asarray(blocks).reshape(len(indices), -1) if len(indices)
+                else np.zeros((0, 1)))
+        np.savetxt(f, flat, fmt="%.9g")
+
+
+def _write_ell_pair(index_path, values_path, header, index, values):
+    with open(index_path, "w") as f:
+        f.write(" ".join(map(str, header)) + "\n")
+        for line in np.asarray(index):
+            _write_int_line(f, line)
+    with open(values_path, "w") as f:
+        np.savetxt(f, np.asarray(values), fmt="%.9g")
+
+
+def write_ell_text(rowind_path: str, values_path: str, shape, nnz,
+                   max_col_nnz, rowind, values):
+    """The column-major ELL pair."""
+    _write_ell_pair(rowind_path, values_path,
+                    (shape[0], shape[1], nnz, max_col_nnz), rowind, values)
+
+
+def write_ell_rowmajor_text(colind_path: str, values_path: str, shape, nnz,
+                            max_row_nnz, colind, values):
+    """The row-major ELL pair ``*_colind.ell`` + ``*_values.ell``."""
+    _write_ell_pair(colind_path, values_path,
+                    (shape[0], shape[1], nnz, max_row_nnz), colind, values)
+
+
+def write_dense_text(path: str, dense: np.ndarray):
+    """``dense.in``; the third header token is the count of non-zeros,
+    which the reader ignores."""
+    dense = np.asarray(dense)
+    with open(path, "w") as f:
+        f.write(f"{dense.shape[0]} {dense.shape[1]} "
+                f"{int(np.count_nonzero(dense))}\n")
+        np.savetxt(f, dense, fmt="%.9g")

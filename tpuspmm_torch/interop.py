@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpuspmm_torch.formats import CSR
+from tpuspmm_torch.formats import BSR, CSC, CSR, ELL
 from tpuspmm_torch.formats.tiles import TilePlan
 from tpuspmm_torch.kernels.pair_spmm import PairPlan
 from tpuspmm_torch.kernels.panel_spmm import PanelPlan
@@ -36,6 +36,27 @@ def csr_from_arrays(indptr, indices, values, shape) -> CSR:
     return CSR(indptr=_i32(indptr), indices=_i32(indices),
                values=np.ascontiguousarray(values, dtype=np.float32),
                shape=tuple(int(s) for s in shape))
+
+
+def csc_from_arrays(indptr, indices, values, shape) -> CSC:
+    return CSC(indptr=_i32(indptr), indices=_i32(indices),
+               values=np.ascontiguousarray(values, dtype=np.float32),
+               shape=tuple(int(s) for s in shape))
+
+
+def bsr_from_arrays(indptr, indices, blocks, shape, block_size,
+                    nnz) -> BSR:
+    return BSR(indptr=_i32(indptr), indices=_i32(indices),
+               blocks=np.ascontiguousarray(blocks, dtype=np.float32),
+               shape=tuple(int(s) for s in shape),
+               block_size=tuple(int(s) for s in block_size), nnz=int(nnz))
+
+
+def ell_from_arrays(rowind, values, shape, nnz, max_col_nnz) -> ELL:
+    return ELL(rowind=_i32(rowind),
+               values=np.ascontiguousarray(values, dtype=np.float32),
+               shape=tuple(int(s) for s in shape), nnz=int(nnz),
+               max_col_nnz=int(max_col_nnz))
 
 
 def panel_plan_from_arrays(kt, st, offs, a_dense, shape, tm, tk, P, sm,

@@ -1,11 +1,15 @@
-"""Best-kernel dispatch for the CSR / COO serving path.
+"""Best-kernel dispatch for the serving path, every format.
 
 Counterpart of ``tpuspmm/kernels/dispatch.py::spmm_pallas``, in its
 order:
 
 1. a matrix that needs the compensated path and can afford it routes
    there (``ops/exact.py``);
-2. BSR input takes the block-streaming kernel (not yet ported: raises);
+2. a BSR whose blocks K6 admits (``bsr_spmm.mxu_friendly``) takes the
+   block-streaming kernel; another BSR takes it on its 128 × 128 packed
+   copy where ``bsr_spmm.pack_blocks`` allows one ("bsr_stream"); any
+   other BSR, and every ELL or CSC, goes down the steps below through its
+   COO view, as in the JAX package;
 3. density ≥ densify_min_density with dense A ≤ densify_max_bytes →
    densify once and serve one f32 matmul (``ops/xla.py``);
 4. the panel (K1) and pair (K2) geometries are resolved with this
@@ -60,28 +64,29 @@ def thresholds(device="cpu") -> dict:
 
 
 def route(a, b: torch.Tensor, config=None) -> str:
-    """The path ``spmm_pallas`` serves (a, b) by: "exact", "densify",
-    "panel", "pair", "staged", "cres", "tile" or "xla".  Resolves (and
-    caches) the geometries and the tile plan it needs."""
+    """The path ``spmm_pallas`` serves (a, b) by: "exact", "bsr_stream",
+    "densify", "panel", "pair", "staged", "cres", "tile" or "xla".
+    Resolves (and caches) the packed BSR, the geometries and the tile plan
+    it needs."""
     return _resolve(a, b, config)[0]
 
 
 def _resolve(a, b: torch.Tensor, config=None):
-    """(route, what that route serves from: a panel or pair plan, a tile
-    plan, or None)."""
+    """(route, what that route serves from: the BSR K6 runs on, a panel or
+    pair plan, a tile plan, or None)."""
     from tpuspmm_torch.config import default_config
     from tpuspmm_torch.formats.tiles import plan_from_container
-    from tpuspmm_torch.kernels import (cres_spmm, csr_vmem, pair_spmm,
-                                       panel_spmm)
+    from tpuspmm_torch.kernels import (bsr_spmm, cres_spmm, csr_vmem,
+                                       pair_spmm, panel_spmm)
     from tpuspmm_torch.ops import exact
 
     config = config or default_config()
     if exact.needs_compensated(a) and exact.exact_admissible(a):
         return "exact", None
-    if a.format_name not in ("csr", "coo"):
-        raise NotImplementedError(
-            f"{a.format_name} input is not yet served by tpuspmm_torch "
-            "(BSR: ROADMAP Queue 2 K6)")
+    if a.format_name == "bsr":
+        served = bsr_spmm.stream_operand(a)
+        if served is not None:
+            return "bsr_stream", served
 
     th = thresholds(b.device)
     m, k = a.shape
@@ -121,8 +126,8 @@ def _resolve(a, b: torch.Tensor, config=None):
 def spmm_pallas(a, b: torch.Tensor, config=None) -> torch.Tensor:
     """Best-strategy SpMM (the "pallas" / "auto" path) on b's device."""
     from tpuspmm_torch.config import default_config
-    from tpuspmm_torch.kernels import (cres_spmm, csr_vmem, pair_spmm,
-                                       panel_spmm, tile_spmm)
+    from tpuspmm_torch.kernels import (bsr_spmm, cres_spmm, csr_vmem,
+                                       pair_spmm, panel_spmm, tile_spmm)
     from tpuspmm_torch.ops import exact, xla
 
     config = config or default_config()
@@ -131,6 +136,8 @@ def spmm_pallas(a, b: torch.Tensor, config=None) -> torch.Tensor:
     mode = config.precision_mode
     if kind == "exact":
         return exact.spmm_exact(a, b)
+    if kind == "bsr_stream":
+        return bsr_spmm.spmm_bsr_stream(plan, b)
     if kind == "densify":
         return xla.spmm_densify_cached(a, b)
     if kind == "panel":

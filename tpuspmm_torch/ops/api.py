@@ -25,16 +25,26 @@ _NOT_YET = {
 
 
 def _as_tensor(b, config) -> torch.Tensor:
+    """A tensor keeps its device; a host array goes to ``config.device``,
+    and a CUDA device that is not there raises."""
     if isinstance(b, torch.Tensor):
         return b
-    b = torch.from_numpy(np.ascontiguousarray(b, dtype=np.float32))
-    return b if config.device is None else b.to(config.device)
+    device = torch.device(config.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"spmm: no CUDA device for a host operand (Config.device="
+            f"{config.device!r}); pass Config(device='cpu') to run on the "
+            "CPU")
+    return torch.from_numpy(np.ascontiguousarray(b, dtype=np.float32)).to(
+        device)
 
 
 def spmm(a, b, method: str = "auto", config=None) -> torch.Tensor:
-    """Sparse @ dense.  `a` is a tpuspmm_torch container, `b` a (K, N)
-    torch tensor (f32 or bf16) or numpy array; the result is a float32
-    tensor on b's device."""
+    """Sparse @ dense.  `a` is a tpuspmm_torch container (CSR, COO, BSR,
+    ELL or CSC), `b` a (K, N) torch tensor (f32 or bf16), served on its own
+    device, or a numpy array, placed on ``config.device`` (the card unless
+    the caller asks for the CPU); the result is a float32 tensor on b's
+    device."""
     from tpuspmm_torch.config import default_config
 
     config = config or default_config()

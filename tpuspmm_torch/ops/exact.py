@@ -34,17 +34,22 @@ def needs_compensated(a) -> bool:
     matrix (cached on the container)."""
     cache = container_cache(a)
     if "max_abs_value" not in cache:
-        vals = np.asarray(a.values)
+        vals = np.asarray(a.blocks if a.format_name == "bsr" else a.values)
         cache["max_abs_value"] = (float(np.max(np.abs(vals)))
                                   if vals.size else 0.0)
     return cache["max_abs_value"] > EXTREME_ABS_VALUE
 
 
 def _max_row_nnz(a) -> int:
-    if a.format_name == "csr":
+    """W, the JAX package's way: exact for CSR and COO, the upper bound
+    (densest block row) × bw for BSR, through the COO view otherwise."""
+    if a.format_name in ("csr", "bsr"):
         ip = np.asarray(a.indptr, dtype=np.int64)
-        return int(np.diff(ip).max()) if len(ip) > 1 else 0
-    r = np.asarray(a.rows)
+        w = int(np.diff(ip).max()) if len(ip) > 1 else 0
+        return w * a.block_size[1] if a.format_name == "bsr" else w
+    from tpuspmm_torch.ops.xla import coo_view
+
+    r = np.asarray(coo_view(a).rows)
     return int(np.bincount(r, minlength=a.shape[0]).max()) if r.size else 0
 
 

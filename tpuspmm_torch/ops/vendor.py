@@ -1,6 +1,8 @@
 """Vendor-baseline SpMM (kernel number -1): ``torch.sparse`` CSR @ dense,
 which is cuSPARSE on the card — the library the reference benchmarks its
-kernels against (counterpart of ``tpuspmm/ops/vendor.py``)."""
+kernels against (counterpart of ``tpuspmm/ops/vendor.py``).  Every format
+goes through its CSR view (a BSR's keeps the explicit zeros of its stored
+blocks), so cuSPARSE is the baseline of every engine."""
 
 from __future__ import annotations
 

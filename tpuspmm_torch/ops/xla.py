@@ -1,13 +1,17 @@
 """Gather / segment-sum and densify SpMM (no hand-written kernel).
 
-Counterpart of ``tpuspmm/ops/xla.py`` for CSR and COO: the JAX package
-computes these outside any Pallas kernel, so here they are plain PyTorch.
+Counterpart of ``tpuspmm/ops/xla.py``: the JAX package computes these
+outside any Pallas kernel, so here they are plain PyTorch.
 
 - ``spmm_triplets``: C[rows[e]] += values[e] · B[cols[e]] by a gather of B
   rows and ``index_add_``; sentinel rows (< 0) are dropped, duplicate
   coordinates add up, and a bf16 B accumulates in float32.
-- ``spmm_csr_xla`` / ``spmm_coo_xla``: the container's triplets, moved to
-  the device once and cached on the container.
+- ``spmm_csr_xla`` / ``spmm_coo_xla`` / ``spmm_ell_xla``: the container's
+  triplets (ELL's with its -1 padding slots), moved to the device once and
+  cached on the container.
+- ``spmm_bsr_blocks`` / ``spmm_bsr_xla``: the B panel of every stored
+  block gathered, one batched full-f32 product, ``index_add_`` over block
+  rows.
 - ``spmm_densify_cached``: A densified once on the host in float64
   (duplicates fold deterministically), cached as a float32 dense tensor on
   the device, then one float32 ``torch.matmul`` per call, in full f32 (the
@@ -86,12 +90,61 @@ def spmm_coo_xla(a, b: torch.Tensor) -> torch.Tensor:
     return spmm_triplets(rows, cols, vals, b, a.shape[0])
 
 
+def spmm_ell_xla(a, b: torch.Tensor) -> torch.Tensor:
+    """Slot (j, s) adds values[j, s]·B[j] to row rowind[j, s]; the -1
+    padding slots are dropped by ``spmm_triplets``."""
+    def build():
+        ncols, mcn = a.rowind.shape
+        return (a.rowind.ravel(),
+                np.repeat(np.arange(ncols, dtype=np.int32), mcn),
+                a.values.ravel())
+
+    rows, cols, vals = cached_device(a, "triplets", b.device, build)
+    return spmm_triplets(rows, cols, vals, b, a.shape[0])
+
+
+def spmm_bsr_blocks(block_rows: torch.Tensor, indices: torch.Tensor,
+                    blocks: torch.Tensor, b: torch.Tensor,
+                    num_block_rows: int) -> torch.Tensor:
+    """C = Σ_i blocks[i] @ B[indices[i]·bw : +bw] added into block row
+    block_rows[i], in stored order: one batched full-f32 product per batch
+    of at most GATHER_BATCH_BYTES of gathered B panels, then
+    ``index_add_``.  B's rows must be a multiple of bw; a bf16 B is upcast
+    (exactly).  Returns (num_block_rows·bh, N) float32."""
+    _, bh, bw = blocks.shape
+    n = int(b.shape[1])
+    panels = b.float().reshape(-1, bw, n)
+    out = torch.zeros(num_block_rows, bh, n, dtype=torch.float32,
+                      device=b.device)
+    step = max(1, GATHER_BATCH_BYTES // max(bw * n * 4, 1))
+    with full_f32_matmul():
+        for s in range(0, int(blocks.shape[0]), step):
+            prod = torch.bmm(blocks[s:s + step],
+                             panels[indices[s:s + step].long()])
+            out.index_add_(0, block_rows[s:s + step].long(), prod)
+    return out.reshape(num_block_rows * bh, n)
+
+
+def spmm_bsr_xla(a, b: torch.Tensor) -> torch.Tensor:
+    block_rows, indices, blocks = cached_device(
+        a, "blocks", b.device,
+        lambda: (expand_indptr(a.indptr, a.nblocks), a.indices, a.blocks))
+    return spmm_bsr_blocks(block_rows, indices, blocks, b,
+                           a.num_block_rows)
+
+
 def spmm_xla(a, b: torch.Tensor) -> torch.Tensor:
-    """The gather path of a CSR or COO container."""
-    if a.format_name == "csr":
-        return spmm_csr_xla(a, b)
-    if a.format_name == "coo":
-        return spmm_coo_xla(a, b)
+    """The gather path of a container: its format's, else (CSC) its CSR
+    view's."""
+    fn = {"csr": spmm_csr_xla, "coo": spmm_coo_xla, "bsr": spmm_bsr_xla,
+          "ell": spmm_ell_xla}.get(a.format_name)
+    if fn is not None:
+        return fn(a, b)
+    if hasattr(a, "to_csr"):
+        cache = container_cache(a)
+        if "csr_view" not in cache:
+            cache["csr_view"] = a.to_csr()
+        return spmm_csr_xla(cache["csr_view"], b)
     raise TypeError(f"no gather path for {a.format_name!r} input")
 
 
