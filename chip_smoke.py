@@ -11,12 +11,23 @@ Prints one JSON object per phase:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off for the plain versions;
 2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc,
-   one process each, started together;
+   one process each, started together; ptxas's registers and spills of
+   the strip kernels, and the tensor-core instructions (HMMA, HGMMA) in
+   the strip library's SASS (cuobjdump), which must not be zero;
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
    pair kernels' entry points against their plain PyTorch versions on the
    same plan at "highest" and "split2", the gate against the f64 oracle
-   at "highest", and both times (CUDA events); the host seconds of the
-   panel and pair geometry searches;
+   at "highest", and both times (CUDA events: the entry point's calls,
+   and its launch replayed in a CUDA graph, the device time); every launch
+   of the two is made twice and must give bit-identical output; the host
+   seconds of the panel and pair geometry searches; each plan's group
+   index (64-row groups: entries, B bytes loaded per call, tensor-core
+   products and their floor at the bf16 rate);
+3b. the panel and pair kernels against their plain versions at both
+   tiers, with the control, on the geometries of STRIP_SHAPES (16- and
+   32-row strips, 256- and 512-deep k-tiles, several supertiles, a
+   row-permuted plan, widths 77, 130 and 200, an f32 plan with bf16 B) and
+   at the gate, and on a matrix with no entry, which must give exact zeros;
 4. tile kernels: launch counts of the tile-plan kernels zeroed, then on
    the same operands K3 tile, K4 staged, K5a C-resident and K5b
    C-resident k-loop against their plain versions on one tile plan, at
@@ -24,8 +35,9 @@ Prints one JSON object per phase:
    "split"; times of kernel and plain; the plan's chunk count, sentinel
    shares and slab count.  K5b's count is read here: no engine variant
    reaches it, as in the JAX package.  In phases 3 and 4 a "split2"
-   result is held to SPLIT2_TOL·max|C|, and at f32 B the f32-tier output
-   must differ from the split2 plain by more than that (the control).
+   result is held to SPLIT2_TOL·max|C|, and with an f32 operand the
+   f32-tier output must differ from the split2 plain by more than that
+   (the control).
    K5a's and K5b's outputs must equal K3's bit for bit: on the card the
    three are one owner walk over the row-major plan;
 4b. block-streaming kernel (K6): on three 4096 x 4096 weights against a
@@ -72,8 +84,9 @@ Prints one JSON object per phase:
    pair kernels against their plain versions; the gate is printed, not
    required (the dispatcher serves these by the compensated path);
 10. the kernels line (all seven kernels, with the least time the card
-   could take for the work, ``bound_ms``, and the library call's time),
-   the card line, and the final ok line.
+   could take for the work, ``bound_ms``, and the library call's time;
+   the strip kernels also with their group index's work), the card line,
+   and the final ok line.
 
 Any failed phase raises, and the script exits non-zero.  It exits
 non-zero without a result when no CUDA device is present or when the
@@ -86,6 +99,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,11 +144,26 @@ ENGINE_RUNS = (
     ["--auto", "-d", PRUNED_DIR],
 )
 ROUTES = {"small_32x32": "densify", "medium_1484": "exact"}
+# geometries of the strip kernel (K1, K2) the corpus does not reach, each
+# against the plain versions at both tiers: (rows, cols, density, tm, tk,
+# sm or None, row-permuted, bf16 plan, B width, B dtype, seed).  Strips of
+# 16 and 32 rows, 256- and 512-deep k-tiles, several supertiles, widths
+# that are no multiple of 4 or 8 (no 16-byte rows), an f32 plan with bf16
+# B, and a matrix with no entry
+STRIP_SHAPES = (
+    (3000, 5000, 0.002, 16, 256, None, False, False, 77, "f32", 1),
+    (3000, 5000, 0.002, 32, 128, 512, True, True, 130, "f32", 2),
+    (3000, 5000, 0.002, 8, 256, 320, False, False, 130, "bf16", 3),
+    (2000, 3000, 0.003, 16, 128, None, True, True, 200, "bf16", 4),
+    (2000, 6000, 0.002, 8, 512, 1000, False, True, 256, "f32", 6),
+    (500, 700, 0.0, 8, 128, 40, False, True, 64, "f32", 5))
 # the card's rates for f32 operands (H100 SXM data sheet): on the tensor
 # cores (TF32), which bound the work, and in FMAs on the CUDA cores, the
-# floor of a kernel that uses no tensor cores
+# floor of a kernel that uses no tensor cores; and the bf16 tensor-core
+# rate, which the strip kernel's products run at
 TF32_PEAK_FLOPS = 495e12
 F32_PEAK_FLOPS = 67e12
+BF16_PEAK_FLOPS = 989e12
 # kernel against its plain version: both sum f32 products (exact for bf16
 # operands) in different orders, so they differ by f32 rounding only
 PLAIN_TOL = 1e-4
@@ -175,6 +204,71 @@ def bound(nbytes: float, flops: float, hbm_bytes_per_s: float) -> dict:
             "fma_floor_ms": flops / F32_PEAK_FLOPS * 1e3}
 
 
+def device_ms(fn) -> float:
+    """Device time of ``fn``'s kernels: ``fn`` captured in a CUDA graph and
+    replayed, so the wrapper's host work does not show."""
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return cuda_time_ms(graph.replay)
+
+
+def tensor_core_ops(path: str) -> tuple:
+    """Tensor-core instructions in a built library's SASS (cuobjdump),
+    and the names of the kernels it holds."""
+    from tpuspmm_torch.kernels import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    return ({op: len(re.findall(rf"\b{op}\.", sass))
+             for op in ("HMMA", "HGMMA")},
+            set(re.findall(r"Function : (\w+)", sass)))
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of each kernel in nvcc's -Xptxas -v."""
+    out = []
+    for name, body in re.findall(
+            r"Compiling entry function '(\w+)' for 'sm_90a'\n(.*?)"
+            r"(?=ptxas info\s+: Compiling|\Z)", log, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        out.append({"kernel": name, "registers": int(regs.group(1)),
+                    "spill_store_bytes": int(spill.group(1)) if spill
+                    else None})
+    return out
+
+
+def strip_work(plan, group_rows: int, n: int) -> dict:
+    """What one launch of the strip kernel moves and computes: its (group,
+    k-tile) entries at ``group_rows`` output rows, the B bytes they load
+    from L2 (one tk x n tile each, f32 and bf16 B), and the tensor-core
+    products it runs (each m16 row tile of an entry with a strip present,
+    16 x tk x n, times the passes of the precision ladder: 1 for bf16 x
+    bf16, 3 with one f32 operand, 6 with two), against the bf16 rate."""
+    G = group_rows // plan.tm
+    group_ptr, _, group_slot = plan.group_index(G)
+    rows = np.repeat(group_slot >= 0, plan.tm, axis=1)
+    m16 = int(rows.reshape(-1, group_rows // 16, 16).any(-1).sum())
+    pairs = int(group_ptr[-1])
+    plan_bf16 = plan.a_dense.dtype == np.uint16
+    out = {"group_rows": group_rows, "group_pairs": pairs,
+           "groups": len(group_ptr) - 1, "m16_tiles": m16}
+    for tag, size, b_bf16 in (("f32", 4, False), ("bf16", 2, True)):
+        passes = 1 if plan_bf16 and b_bf16 else 3 if plan_bf16 or b_bf16 \
+            else 6
+        flop = 2.0 * m16 * 16 * plan.tk * n * passes
+        sfx = "" if tag == "f32" else "_bf16"
+        out[f"b_mb_per_call{sfx}"] = pairs * plan.tk * n * size / 1e6
+        out[f"tc_gflop{sfx}"] = flop / 1e9
+        out[f"tc_floor_ms{sfx}"] = flop / BF16_PEAK_FLOPS * 1e3
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -187,7 +281,7 @@ def main() -> int:
     from tpuspmm_torch.config import Config
     from tpuspmm_torch import cli
     from tpuspmm_torch.formats import tiles
-    from tpuspmm_torch.formats import BSR
+    from tpuspmm_torch.formats import BSR, COO
     from tpuspmm_torch.formats import io as fio
     from tpuspmm_torch.kernels import (bsr_cuda, bsr_spmm, chunk_cuda,
                                        cres_spmm, csr_vmem, cuda_build,
@@ -216,10 +310,24 @@ def main() -> int:
         list(pool.map(lambda lib: lib.build(), libraries))
     for lib in libraries:
         lib.load()
+    # the strip routine must run its products on the tensor cores; ptxas's
+    # report (kept beside the library, so a cached build has it too) must
+    # give registers and spills of every kernel in its SASS
+    strip_tc, strip_kernels = tensor_core_ops(
+        strip_cuda.LIBRARY.library_path())
+    strip_ptxas = ptxas_report(strip_cuda.LIBRARY.build_log())
     emit("build", sources=[os.path.relpath(lib.source, REPO)
                            for lib in libraries],
          seconds=time.perf_counter() - t0,
-         flags=" ".join(cuda_build.NVCC_FLAGS))
+         flags=" ".join(cuda_build.NVCC_FLAGS),
+         strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas)
+    check(strip_tc["HMMA"] + strip_tc["HGMMA"] > 0,
+          f"strip_spmm.cu has tensor-core instructions ({strip_tc})")
+    reported = {r["kernel"] for r in strip_ptxas
+                if r["spill_store_bytes"] is not None}
+    check(strip_kernels and strip_kernels <= reported,
+          f"ptxas reports registers and spills of every strip kernel "
+          f"({len(reported)} of {len(strip_kernels)})")
 
     def load(name: str):
         d = data_dir(name)
@@ -284,13 +392,18 @@ def main() -> int:
 
     def against_plain(name, plan, b, timed: bool,
                       mode: str = "highest") -> dict:
-        """One kernel launch against its plain version on the same plan;
-        launches made here are reset by the caller's window."""
+        """Two kernel launches, bit-identical, against the plain version
+        on the same plan; launches made here are reset by the caller's
+        window."""
         fn, plain = entries[name]
         before = fn.launches
         got = fn(plan, b, mode)
+        again = fn(plan, b, mode)
         torch.cuda.synchronize()
-        check(fn.launches == before + 1, f"{name} launch counter rose")
+        check(fn.launches == before + 2, f"{name} launch counter rose")
+        check(torch.equal(got, again), f"{name} {mode} two launches give "
+                                       "bit-identical output")
+        del again
         want = plain(plan, b, mode)
         torch.cuda.synchronize()
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
@@ -304,13 +417,14 @@ def main() -> int:
                "want": want}
         if timed:
             out["ms"] = cuda_time_ms(lambda: fn(plan, b, mode))
+            out["device_ms"] = device_ms(lambda: fn(plan, b, mode))
             out["plain_ms"] = cuda_time_ms(lambda: plain(plan, b, mode))
         return out
 
     def split2_control(name, f32_tier_out, split2_plain) -> dict:
-        """At f32 B the f32-tier output differs from the split2 plain by
-        more than SPLIT2_TOL·max|C|: that tolerance tells the tiers apart,
-        so a kernel ignoring "split2" would fail it."""
+        """With an f32 operand the f32-tier output differs from the split2
+        plain by more than SPLIT2_TOL·max|C|: that tolerance tells the
+        tiers apart, so a kernel ignoring "split2" would fail it."""
         gap = max_abs_err(f32_tier_out, split2_plain)
         scale = float(split2_plain.abs().max())
         check(gap > SPLIT2_TOL * scale,
@@ -347,17 +461,73 @@ def main() -> int:
                 stats[name].get("max_abs_err_split2", 0.0),
                 r2["max_abs_err"])
             stats[name][f"ms_{tag}"] = r["ms"]
+            stats[name][f"device_ms_{tag}"] = r["device_ms"]
             stats[name][f"plain_ms_{tag}"] = r["plain_ms"]
             emit("kernel_vs_plain", kernel=name, testcase=HEADLINE,
                  b_dtype=tag, geometry=geometry(plan),
                  max_abs_err=r["max_abs_err"], max_abs_c=r["max_abs_c"],
                  tolerance=f"{PLAIN_TOL}*max|C| (f32 sums in another order)",
-                 gate=gate, ms=r["ms"], plain_ms=r["plain_ms"],
+                 gate=gate, ms=r["ms"], device_ms=r["device_ms"],
+                 plain_ms=r["plain_ms"],
                  split2={"max_abs_err": r2["max_abs_err"],
                          "max_abs_c": r2["max_abs_c"],
                          "tolerance": f"{SPLIT2_TOL}*max|C|",
                          "control": control})
             del r, r2
+    for name, plan in plans.items():
+        stats[name]["work"] = strip_work(plan, strip_cuda.GROUP_ROWS, WIDTH)
+        emit("strip_work", kernel=name, testcase=HEADLINE,
+             **stats[name]["work"])
+
+    # ---- 3b. strip kernel on the geometries the corpus misses -----------
+    for (rows, cols, density, tm, tk, sm, permuted, bf16_plan, width, bdt,
+         seed) in STRIP_SHAPES:
+        rng = np.random.default_rng(seed)
+        flat = rng.choice(rows * cols, int(rows * cols * density),
+                          replace=False)
+        r, c = flat // cols, flat % cols
+        v = (rng.integers(-8, 9, len(flat)) if bf16_plan
+             else rng.uniform(-1, 1, len(flat))).astype(np.float32)
+        perm = (panel_spmm._order_perm(r, c, rows, c // tk, "signature")
+                if permuted else None)
+        kw = dict(tm=tm, tk=tk, sm=sm, row_perm=perm)
+        splans = {"panel": panel_spmm.build_panel_plan(
+                      r, c, v, (rows, cols), panel_strips=8, **kw),
+                  "pair": pair_spmm.build_pair_plan(
+                      r, c, v, (rows, cols), chunk_strips=8, **kw)}
+        sb = torch.from_numpy(rng.uniform(-1, 1, (cols, width)).astype(
+            np.float32)).to(dev)
+        if bdt == "bf16":
+            sb = sb.to(torch.bfloat16)
+        ref = oracle.spmm_oracle(
+            COO(rows=r.astype(np.int32), cols=c.astype(np.int32), values=v,
+                shape=(rows, cols)), sb.float().cpu().numpy())
+        rec = {"shape": [rows, cols], "nnz": len(flat), "tm": tm, "tk": tk,
+               "sm": sm, "permuted": permuted, "width": width,
+               "b_dtype": bdt}
+        for name, plan in splans.items():
+            check((plan.a_dense.dtype == np.uint16) == bf16_plan,
+                  f"{name} plan stored as {'bf16' if bf16_plan else 'f32'}")
+            r1 = against_plain(name, plan, sb, timed=False)
+            r2 = against_plain(name, plan, sb, timed=False, mode="split2")
+            gate = allclose(r1["out"], ref)
+            check(gate, f"{name} {rec} gate vs f64 oracle")
+            if len(flat) == 0:
+                check(not r1["out"].any() and not r2["out"].any(),
+                      f"{name}: a matrix with no entry gives exact zeros")
+            control = (split2_control(name, r1["out"], r2["want"])
+                       if len(flat) and (bdt == "f32" or not bf16_plan)
+                       else None)
+            rec[name] = {"max_abs_err": r1["max_abs_err"],
+                         "max_abs_c": r1["max_abs_c"], "gate": gate,
+                         "split2_max_abs_err": r2["max_abs_err"],
+                         "split2_control": control,
+                         "plan_bf16": bf16_plan, "sm": plan.sm}
+            del r1, r2
+        emit("strip_shapes", **rec,
+             tolerance=f"highest {PLAIN_TOL}*max|C|, split2 "
+                       f"{SPLIT2_TOL}*max|C|; two launches bit-identical")
+        del sb
 
     # ---- 4. tile-plan kernels against plain versions --------------------
     tile_entries = {
@@ -820,7 +990,9 @@ def main() -> int:
     }
     lines = []
     for name, (entry, source, replaces) in kernels.items():
-        if name == "cres_kloop":
+        if name in launches:  # K1, K2: the CSR serving path
+            count, window = launches[name], "serving (tpuspmm_torch.spmm)"
+        elif name == "cres_kloop":
             count, window = tile_window[name], "tile_kernels_vs_plain"
         else:
             count, window = engine_launches[name], "engine (cli.main)"
@@ -841,8 +1013,11 @@ def main() -> int:
             line["note"] = ("the owner walk of tile_chunk_spmm over the "
                             "row-major plan: output bit-identical to K3's")
         if name in launches:
-            line["serving_path_launches"] = launches[name]
+            line["engine_launches"] = engine_launches[name]
             line["entry_point_launches"] = entry_launches[name]
+            line["device_ms"] = stats[name]["device_ms_f32"]
+            line["device_ms_bf16"] = stats[name]["device_ms_bf16"]
+            line.update(stats[name]["work"])
         lines.append(line)
     ka = k6_stats["a"]
     lib_ms = ka.get("torch_bsr_ms")

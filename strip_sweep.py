@@ -1,0 +1,247 @@
+#!/usr/bin/env python3
+"""Time variants of the strip-owner kernel (csrc/strip_spmm.cu) on one
+NVIDIA GPU.
+
+Run from the repository root:
+
+    python3 strip_sweep.py [--variants NAME,NAME,...]
+    python3 strip_sweep.py --profile-host
+
+Each variant is a copy of the source with some of its lines replaced
+(VARIANTS; "serving" is the source as it stands), written to and built in
+build/strip_sweep/, one nvcc each, all started together.  The serving
+code carries no options: a patch whose text is not in the source exactly
+once makes that variant's build record an error.  Every variant runs the
+panel plan the dispatcher resolves for each case below, is held against
+the plain version (1e-4·max|C|) and timed with CUDA events (median of 20,
+L2 warm), in turns with the other variants: ``ms`` replays the launch
+captured in a CUDA graph (device time), ``call_ms`` calls the wrapper
+(device time, or the wrapper's host time where that is longer).  Prints
+the card line, one JSON line per variant with ptxas's registers and spills
+per kernel, and one JSON line per (case, B dtype) with each variant's ms.
+``--profile-host`` instead profiles the host side of serving calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+OUT = os.path.join(REPO, "build", "strip_sweep")
+NARROW = "const bool narrow = (long long)n_groups * ((n + 127) / 128) < sms;"
+WARPS = ("static constexpr int WTM = SPLIT_B ? 64 : 32;",
+         "static constexpr int WTN = SPLIT_B ? 16 : 32;")
+
+
+def warps(m: int, n: int) -> list:
+    return [(WARPS[0], f"static constexpr int WTM = {m};"),
+            (WARPS[1], f"static constexpr int WTN = {n};")]
+
+
+def const(name: str, old: int, new: int) -> tuple:
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+# name: [(text of the source, its replacement), ...].  128-row groups run
+# 16 warps a block, so one block an SM keeps their registers at 128
+VARIANTS = {
+    "serving": [],
+    "tn128": [(NARROW, "const bool narrow = false;")],
+    "tn64": [(NARROW, "const bool narrow = true;")],
+    "group_order": [("if (unit >= sms &&", "if (false &&"),
+                    ("group_order[unit / ncol]", "unit / ncol")],
+    "warps_64x16": warps(64, 16),
+    "warps_32x32": warps(32, 32),
+    "one_block_per_sm": [const("BLOCKS", 2, 1)],
+    "two_stages": [const("MAX_STAGES", 8, 2)],
+    "kc32": [const("KC", 64, 32), const("MAX_STAGES", 8, 16)],
+    "rows128": [const("GROUP_ROWS", 64, 128), const("BLOCKS", 2, 1)],
+}
+# (corpus dir, B width or None for the on-disk width, B dtypes)
+CASES = (("large_25605", 256, ("f32", "bf16")),
+         ("large_21074", 256, ("f32", "bf16")),
+         ("medium_4096", None, ("f32",)))
+PLAIN_TOL = 1e-4
+
+
+def build(name: str, patches: list, nvcc: str, flags, source: str) -> dict:
+    """Build the source with ``patches`` applied into OUT; the record
+    holds the library's path, its group rows and ptxas's report."""
+    with open(source) as f:
+        text = f.read()
+    for old, new in patches:
+        if text.count(old) != 1:
+            return {"name": name, "error": f"{old!r} is not in the source "
+                                           "exactly once"}
+        text = text.replace(old, new)
+    os.makedirs(OUT, exist_ok=True)
+    src = os.path.join(OUT, f"{name}.cu")
+    with open(src, "w") as f:
+        f.write(text)
+    path = os.path.join(OUT, f"lib{name}.so")
+    res = subprocess.run([nvcc, *flags, "-I", os.path.dirname(source), "-o",
+                          path, src], capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        return {"name": name, "error": log[-2000:]}
+    rows = re.search(r"constexpr int GROUP_ROWS = (\d+);", text)
+    return {"name": name, "path": path, "patches": patches,
+            "group_rows": int(rows.group(1)),
+            "registers": [int(r) for r in re.findall(r"Used (\d+) registers",
+                                                     log)],
+            "spill_store_bytes": [int(s) for s in re.findall(
+                r"(\d+) bytes spill stores", log)]}
+
+
+def profile_host() -> int:
+    """cProfile of the host work of ``tpuspmm_torch.spmm`` and of the
+    panel entry point on a prebuilt plan, large_25605 w256 with bf16 B
+    (the device time is below the host time there)."""
+    import cProfile
+    import pstats
+
+    import tpuspmm_torch
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import convert
+    from tpuspmm_torch.kernels import panel_spmm
+
+    a = convert.load_sparse(data_dir("large_25605"), "csr")
+    dense = convert.load_dense(data_dir("large_25605"), width=256)
+    b = torch.from_numpy(dense.data).cuda().to(torch.bfloat16)
+    geom = panel_spmm.resolve_panel_geometry(
+        a, 256, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP, device=b.device)
+    plan = panel_spmm.panel_plan_from_geometry(a, geom)
+    for name, call in (("spmm", lambda: tpuspmm_torch.spmm(a, b)),
+                       ("spmm_panel", lambda: panel_spmm.spmm_panel(plan,
+                                                                    b))):
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(200):
+            call()
+        prof.disable()
+        torch.cuda.synchronize()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(25)
+        print(f"== {name}: 200 calls", flush=True)
+        print(out.getvalue(), flush=True)
+    return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("strip_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import convert
+    from tpuspmm_torch.kernels import cuda_build, panel_spmm, strip_cuda
+    from tpuspmm_torch.utils.compare import max_abs_err
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--profile-host", action="store_true",
+                    help="only profile the host side of 200 serves of "
+                         "large_25605 w256 with bf16 B (cProfile)")
+    args = ap.parse_args()
+    if args.profile_host:
+        return profile_host()
+    names = args.variants.split(",")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(
+            lambda name: build(name, VARIANTS[name], cuda_build.nvcc(),
+                               cuda_build.NVCC_FLAGS, strip_cuda.SOURCE),
+            names))
+    libs = {}
+    for rec in built:
+        print(json.dumps({k: v for k, v in rec.items() if k != "path"}),
+              flush=True)
+        if "path" in rec:
+            lib = ctypes.CDLL(rec["path"])
+            strip_cuda._bind(lib)
+            libs[rec["name"]] = (lib, rec["group_rows"])
+
+    dev = torch.device("cuda")
+    for case, width, dtypes in CASES:
+        a = convert.load_sparse(data_dir(case), "csr")
+        dense = convert.load_dense(data_dir(case), width=width)
+        n = dense.data.shape[1]
+        geom = panel_spmm.resolve_panel_geometry(
+            a, -(-n // 128) * 128, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP,
+            device=dev)
+        plan = panel_spmm.panel_plan_from_geometry(a, geom)
+        arrs = {}
+        for gr in {g for _, g in libs.values()}:
+            arrs[gr] = dict(plan.device_arrays(dev))
+            index = panel_spmm.group_arrays(plan, gr // plan.tm)
+            arrs[gr].update({k: v.to(dev) for k, v in index.items()})
+        b32 = torch.from_numpy(dense.data).to(dev)
+        for tag in dtypes:
+            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
+            want = panel_spmm.panel_spmm_plain(plan, b)
+            scale = float(want.abs().max())
+
+            def run(name):
+                # the wrapper, launching this variant's library on an
+                # index over its group rows
+                lib, gr = libs[name]
+                strip_cuda.load = lambda: lib
+                strip_cuda.GROUP_ROWS = gr
+                out = strip_cuda.strip_spmm(
+                    "panel_strip_spmm", arrs[gr], b, plan.n_out_strips,
+                    plan.tm, plan.tk)
+                return panel_spmm.finish_panel_output(out, plan, arrs[gr], n)
+
+            rec = {"case": case, "b": tag, "width": n,
+                   "tm": plan.tm, "tk": plan.tk,
+                   "plan_bf16": plan.a_dense.dtype == np.uint16,
+                   "max_abs_c": scale, "ms": {}, "err": {}}
+            for name in libs:
+                got = run(name)
+                torch.cuda.synchronize()
+                rec["err"][name] = max_abs_err(got, want)
+            # device time: each variant's launch captured in a CUDA graph
+            # and replayed, so the wrapper's host work does not show
+            graphs = {}
+            for name in libs:
+                graphs[name] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[name]):
+                    run(name)
+            torch.cuda.synchronize()
+            order = list(libs) + list(libs)[::-1]
+            times = {name: [] for name in libs}
+            calls = {name: [] for name in libs}
+            for name in order:
+                times[name].append(cuda_time_ms(graphs[name].replay))
+                calls[name].append(cuda_time_ms(lambda: run(name)))
+            rec["ms"] = {k: min(v) for k, v in times.items()}
+            rec["call_ms"] = {k: min(v) for k, v in calls.items()}
+            del graphs
+            rec["ok"] = all(e <= PLAIN_TOL * scale
+                            for e in rec["err"].values())
+            print(json.dumps(rec), flush=True)
+            del want
+        del b32
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

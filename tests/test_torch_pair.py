@@ -19,7 +19,8 @@ from tpuspmm_torch.formats import COO
 from tpuspmm_torch.kernels import pair_spmm as tq
 from tpuspmm_torch.kernels.dispatch import thresholds
 from tpuspmm_torch.utils.compare import allclose
-from test_torch_panel import as_u16, signature_perm, strip_walk, triplets
+from test_torch_panel import (as_u16, check_group_index, group_walk,
+                              signature_perm, strip_walk, triplets)
 
 
 def to_port(plan):
@@ -159,6 +160,42 @@ def test_strip_index_walk_reproduces_plain(sm, reorder):
     got = tq.finish_panel_output(walk, plan, plan.device_arrays("cpu"), n)
     plain = tq.pair_spmm_plain(plan, b)
     assert torch.allclose(got, plain, rtol=0, atol=1e-5)
+
+
+PAIR_GROUP_CASES = [
+    # (tm, tk, CH, sm, reorder, empty_rows, nnz): 64-row groups
+    (8, 128, 8, None, False, None, True),
+    (16, 256, 32, None, True, None, True),
+    (32, 128, 8, None, False, (40, 80), True),
+    (8, 256, 8, 40, True, (40, 80), True),
+    (16, 128, 32, 48, False, (0, 64), True),
+    (32, 256, 8, 64, True, None, True),
+    (8, 128, 8, 40, False, None, False),
+]
+
+
+@pytest.mark.parametrize("tm,tk,CH,sm,reorder,empty,nnz", PAIR_GROUP_CASES)
+def test_group_index_walk_reproduces_plain(tm, tk, CH, sm, reorder, empty,
+                                           nnz):
+    """The group index over the pair layout's strip index: each (group,
+    k-tile) entry's strips, walked with one B tile, give the plain
+    version."""
+    m, k, n = 200, 500, 48
+    r, c, v = triplets(m, k, 0.03 if nnz else 0.0, seed=tm + CH,
+                       empty_rows=empty)
+    perm = signature_perm(r, c, m, tk) if reorder and nnz else None
+    plan = tq.build_pair_plan(r, c, v, (m, k), tm=tm, tk=tk,
+                              chunk_strips=CH, sm=sm, row_perm=perm)
+    G = tq.GROUP_ROWS // tm
+    check_group_index(plan, G)
+    b = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (k, n)).astype(np.float32))
+    walk = group_walk(plan, b, G).float()
+    got = tq.finish_panel_output(walk, plan, plan.device_arrays("cpu"), n)
+    plain = tq.pair_spmm_plain(plan, b)
+    assert torch.allclose(got, plain, rtol=0, atol=1e-5)
+    if not nnz:
+        assert not got.any() and plan.group_index(G)[0][-1] == 0
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():

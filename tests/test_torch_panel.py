@@ -10,6 +10,8 @@ orders; both also pass the rel 1e-2 / abs 1e-3 gate against the f64
 oracle.
 """
 
+import os
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -217,6 +219,136 @@ def test_strip_index_walk_reproduces_plain(sm, reorder):
     got = tp.finish_panel_output(walk, plan, plan.device_arrays("cpu"), n)
     plain = tp.panel_spmm_plain(plan, b)
     assert torch.allclose(got, plain, rtol=0, atol=1e-5)
+
+
+def group_walk(plan, b, G):
+    """Pure-torch walk of the group index: what each block of the CUDA
+    kernel computes, G output strips and one B tile per (group, k-tile)
+    entry, in f64."""
+    group_ptr, group_kt, group_slot = plan.group_index(G)
+    tm, tk = plan.tm, plan.tk
+    a = tp.plan_tensor(plan.a_dense).double()
+    bp = torch.zeros(plan.num_k_tiles * tk, b.shape[1], dtype=torch.float64)
+    bp[:b.shape[0]] = b.double()
+    n_groups = len(group_ptr) - 1
+    out = torch.zeros(n_groups * G * tm, b.shape[1], dtype=torch.float64)
+    for g in range(n_groups):
+        for e in range(group_ptr[g], group_ptr[g + 1]):
+            tile = bp[int(group_kt[e]) * tk:(int(group_kt[e]) + 1) * tk]
+            for j, s in enumerate(group_slot[e]):
+                if s >= 0:
+                    row = (g * G + j) * tm
+                    out[row:row + tm] += a[s * tm:(s + 1) * tm] @ tile
+    return out[:plan.n_out_strips * tm]
+
+
+def check_group_index(plan, G):
+    """Each group's entries are in ascending k-tile and hold exactly the
+    strip index's (output strip, k-tile, slot) triples of its strips."""
+    strip_ptr, src_slot, src_kt = plan.strip_index()
+    group_ptr, group_kt, group_slot = plan.group_index(G)
+    assert len(group_ptr) == -(-plan.n_out_strips // G) + 1
+    assert group_slot.shape == (len(group_kt), G)
+    want = {(g, int(kt), int(s)) for g in range(plan.n_out_strips)
+            for s, kt in zip(src_slot[strip_ptr[g]:strip_ptr[g + 1]],
+                             src_kt[strip_ptr[g]:strip_ptr[g + 1]])}
+    got = set()
+    for grp in range(len(group_ptr) - 1):
+        kts = group_kt[group_ptr[grp]:group_ptr[grp + 1]]
+        assert (np.diff(kts) > 0).all()
+        for e in range(group_ptr[grp], group_ptr[grp + 1]):
+            assert (group_slot[e] >= 0).any()  # no empty entry
+            got |= {(grp * G + j, int(group_kt[e]), int(s))
+                    for j, s in enumerate(group_slot[e]) if s >= 0}
+    assert got == want
+
+
+GROUP_CASES = [
+    # (tm, tk, sm, reorder, empty_rows, nnz): 64-row groups
+    (8, 128, None, False, None, True),
+    (16, 256, None, True, None, True),
+    (32, 128, None, False, (40, 80), True),
+    (8, 256, 40, True, (40, 80), True),
+    (16, 128, 48, False, (0, 64), True),
+    (32, 256, 64, True, None, True),
+    (8, 128, 40, False, None, False),
+]
+
+
+@pytest.mark.parametrize("tm,tk,sm,reorder,empty,nnz", GROUP_CASES)
+def test_group_index_walk_reproduces_plain(tm, tk, sm, reorder, empty, nnz):
+    m, k, n = 200, 500, 48
+    r, c, v = triplets(m, k, 0.03 if nnz else 0.0, seed=tm + tk,
+                       empty_rows=empty)
+    perm = signature_perm(r, c, m, tk) if reorder and nnz else None
+    plan = tp.build_panel_plan(r, c, v, (m, k), tm=tm, tk=tk,
+                               panel_strips=4, sm=sm, row_perm=perm)
+    G = tp.GROUP_ROWS // tm
+    check_group_index(plan, G)
+    b = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (k, n)).astype(np.float32))
+    walk = group_walk(plan, b, G).float()
+    got = tp.finish_panel_output(walk, plan, plan.device_arrays("cpu"), n)
+    plain = tp.panel_spmm_plain(plan, b)
+    assert torch.allclose(got, plain, rtol=0, atol=1e-5)
+    if not nnz:
+        assert not got.any() and plan.group_index(G)[0][-1] == 0
+
+
+def test_group_index_counts_on_large_25605():
+    """The figure behind the strip kernel's B traffic: at the dispatcher's
+    geometry (tm 8, tk 128, P 8) 6,893 real strips make 1,412 (group,
+    k-tile) entries in 64-row groups, each one B tile load a column tile."""
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import convert
+
+    a = convert.load_sparse(data_dir("large_25605"), "csr")
+    geom = tp.resolve_panel_geometry(a, 256,
+                                     plan_bytes_cap=tp.PLAN_BYTES_CAP)
+    plan = tp.panel_plan_from_geometry(a, geom)
+    assert (plan.tm, plan.tk, plan.panel_strips) == (8, 128, 8)
+    assert len(plan.offs.reshape(-1)) == 7688
+    assert len(plan.strip_index()[1]) == 6893
+    group_ptr, group_kt, _ = plan.group_index(tp.GROUP_ROWS // plan.tm)
+    assert len(group_ptr) - 1 == 99 and group_ptr[-1] == len(group_kt) == 1412
+    check_group_index(plan, tp.GROUP_ROWS // plan.tm)
+
+
+def test_group_rows_is_the_kernels_constant():
+    """The group index's rows (strip_cuda.GROUP_ROWS, which the wrapper
+    checks) are the rows the kernel is compiled for."""
+    import re
+
+    from tpuspmm_torch.kernels import strip_cuda
+
+    with open(strip_cuda.SOURCE) as f:
+        rows = re.findall(r"^constexpr int GROUP_ROWS = (\d+);", f.read(),
+                          re.M)
+    assert rows == [str(strip_cuda.GROUP_ROWS)]
+    assert tp.GROUP_ROWS == strip_cuda.GROUP_ROWS
+
+
+def test_library_path_covers_included_headers(tmp_path):
+    """An edited csrc header rebuilds every library that includes it; a
+    file the source does not include changes nothing."""
+    import shutil
+
+    from tpuspmm_torch.kernels import cuda_build, strip_cuda
+
+    for name in ("strip_spmm.cu", "tensor_core.cuh"):
+        shutil.copy(os.path.join(cuda_build.CSRC, name), tmp_path / name)
+    (tmp_path / "other.cuh").write_text("// not included\n")
+    lib = cuda_build.CudaLibrary(str(tmp_path / "strip_spmm.cu"), None)
+    assert sorted(map(os.path.basename, lib.sources())) == [
+        "strip_spmm.cu", "tensor_core.cuh"]
+    before = lib.library_path()
+    assert os.path.basename(before) == os.path.basename(
+        strip_cuda.library_path())
+    (tmp_path / "other.cuh").write_text("// edited\n")
+    assert lib.library_path() == before
+    with open(tmp_path / "tensor_core.cuh", "a") as f:
+        f.write("// edited\n")
+    assert lib.library_path() != before
 
 
 def test_container_entry_matches_oracle():

@@ -3,9 +3,13 @@ ctypes.
 
 A library is compiled at first use for ``sm_90a`` into
 ``build/tpuspmm_torch/`` at the repository root (git-ignored), named by the
-hash of its source so an edited source is rebuilt, and loaded through its
-plain C interface.  Nothing here runs when the module is imported: the CPU
-tests import it without a CUDA toolkit.
+hash of its source and of the csrc/ headers it includes, so an edited
+source or header is rebuilt, and loaded through its plain C interface.
+ptxas reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); nvcc's report is kept beside the library
+(``CudaLibrary.build_log``).
+Nothing here runs when the module is imported: the CPU tests import it
+without a CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from typing import Callable
 
@@ -21,7 +26,8 @@ CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "tpuspmm_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc() -> str:
@@ -41,11 +47,30 @@ class CudaLibrary:
         self._bind = bind
         self._lib = None
 
+    def sources(self) -> list:
+        """The source and every header under its directory that it
+        includes with quotes, directly or through another header."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in found:
+                continue
+            found.append(path)
+            with open(path, "rb") as f:
+                names = _INCLUDE.findall(f.read())
+            for name in names:
+                dep = os.path.join(os.path.dirname(path), name.decode())
+                if os.path.exists(dep):
+                    todo.append(dep)
+        return found
+
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in self.sources():
+            with open(path, "rb") as f:
+                h.update(f.read())
         stem = os.path.splitext(os.path.basename(self.source))[0]
-        return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+        return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
     def build(self) -> str:
         """Compile unless this source's build exists; return its path.
@@ -61,8 +86,21 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed on {self.source} "
                                f"({res.returncode}):\n{res.stdout}\n"
                                f"{res.stderr}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(res.stdout + res.stderr)
+        os.replace(f"{tmp}.log", self._log_path(path))
         os.replace(tmp, path)  # a concurrent loader never sees a partial file
         return path
+
+    @staticmethod
+    def _log_path(library: str) -> str:
+        return os.path.splitext(library)[0] + ".log"
+
+    def build_log(self) -> str:
+        """nvcc's report (ptxas's registers and spills per kernel) of the
+        build of this source, built at first use."""
+        with open(self._log_path(self.build())) as f:
+            return f.read()
 
     def load(self):
         """The bound library, built at first use."""

@@ -13,8 +13,9 @@ its pair:
 On the card the pair layout is served by the strip-owner kernel
 (``csrc/strip_spmm.cu``, entry ``pair_strip_spmm``) through a CSR index
 over the output strips derived from kt, start, count and offs
-(:meth:`PairPlan.strip_index`).  On a CPU tensor the wrapper runs the
-plain version, :func:`pair_spmm_plain`.
+(:meth:`PairPlan.strip_index`) and the group index over it
+(:meth:`PairPlan.group_index`), as the panel layout is.  On a CPU tensor
+the wrapper runs the plain version, :func:`pair_spmm_plain`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from tpuspmm_torch.kernels.common import pad_b, round_up
 from tpuspmm_torch.kernels.panel_spmm import (
     ORDER_KINDS,
     PLAIN_BATCH_BYTES,
+    GROUP_ROWS,
     PLAN_BYTES_CAP,
     _bf16_bits,
     _dedupe_triplets,
@@ -37,8 +39,10 @@ from tpuspmm_torch.kernels.panel_spmm import (
     _occupied_strip_groups,
     _order_candidates,
     _st_strip_counts_from_groups,
+    cached_group_index,
     check_operand,
     finish_panel_output,
+    group_arrays,
     normalize_panel_mode,
     panel_matmul,
     plan_tensor,
@@ -131,18 +135,23 @@ class PairPlan:
             object.__setattr__(self, "_strip_index", cached)
         return cached
 
+    def group_index(self, G: int):
+        """(group_ptr, group_kt, group_slot) over groups of G output
+        strips (:func:`~tpuspmm_torch.kernels.panel_spmm.strip_group_index`);
+        cached."""
+        return cached_group_index(self, G)
+
     def device_arrays(self, device):
-        """Chunk arrays, offs, stacked plan, strip index and un-permute
-        index on ``device``, transferred once and cached."""
+        """Chunk arrays, offs, stacked plan, group index (GROUP_ROWS // tm
+        strips a group) and un-permute index on ``device``, transferred
+        once and cached."""
         def build():
             c_kt, c_st, c_start, c_count = self.chunk_arrays()
-            strip_ptr, src_slot, src_kt = self.strip_index()
             arrs = {"c_kt": c_kt, "c_st": c_st, "c_start": c_start,
-                    "c_count": c_count, "offs": self.offs,
-                    "strip_ptr": strip_ptr, "src_slot": src_slot,
-                    "src_kt": src_kt}
+                    "c_count": c_count, "offs": self.offs}
             out = {k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in arrs.items()}
+            out.update(group_arrays(self, GROUP_ROWS // self.tm))
             out["a_dense"] = plan_tensor(self.a_dense)
             if self.row_perm is not None:
                 out["inv"] = torch.from_numpy(

@@ -14,10 +14,13 @@ Padding strips carry offset ``sm`` (the TPU kernel's trash strip).
 
 On the card the panel layout is served by the strip-owner kernel
 (``csrc/strip_spmm.cu``, entry ``panel_strip_spmm``): the plan arrays stay
-exactly as above, and a CSR index over the output strips
-(:meth:`PanelPlan.strip_index`) gives each output strip one owner that
-walks its plan strips in plan order.  On a CPU tensor the wrapper runs the
-plain version, :func:`panel_spmm_plain`.
+exactly as above.  A CSR index over the output strips
+(:meth:`PanelPlan.strip_index`) lists each output strip's plan strips in
+plan order, and a group index over it (:meth:`PanelPlan.group_index`)
+gives each group of GROUP_ROWS output rows one owner block that walks its
+(group, k-tile) entries in ascending k-tile, loading each B tile once for
+the group's strips.  On a CPU tensor the wrapper runs the plain version,
+:func:`panel_spmm_plain`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from tpuspmm_torch.formats.base import container_cache
 from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
+from tpuspmm_torch.kernels.strip_cuda import GROUP_ROWS
 
 # admission cap on the stacked dense plan (re-read from device memory
 # every call)
@@ -60,6 +64,51 @@ def strip_owner_index(out_strip: np.ndarray, slot: np.ndarray,
     return (strip_ptr.astype(np.int32),
             np.asarray(slot, np.int32)[order],
             np.asarray(kt, np.int32)[order])
+
+
+def strip_group_index(strip_ptr, src_slot, src_kt, n_out: int, G: int):
+    """Group index over a strip-owner index: output strips [g·G, +G) form
+    group g, and each (group, k-tile) entry lists the G source slots at
+    that k-tile, -1 for a strip absent there.  Returns (group_ptr (n_groups
+    + 1,), group_kt (n_entries,), group_slot (n_entries, G)), int32, each
+    group's entries in ascending k-tile.  Raises if an output strip holds
+    two plan strips at one k-tile (no plan builds that)."""
+    counts = np.diff(np.asarray(strip_ptr, np.int64))
+    strip = np.repeat(np.arange(n_out, dtype=np.int64), counts)
+    kt = np.asarray(src_kt, np.int64)
+    nkt = int(kt.max()) + 1 if len(kt) else 1
+    keys, entry = np.unique((strip // G) * nkt + kt, return_inverse=True)
+    cell = entry.reshape(-1) * G + strip % G
+    if len(np.unique(cell)) != len(cell):
+        raise ValueError("an output strip holds two strips at one k-tile")
+    group_slot = np.full((len(keys), G), -1, np.int32)
+    group_slot.reshape(-1)[cell] = np.asarray(src_slot, np.int32)
+    n_groups = -(-n_out // G)
+    group_ptr = np.zeros(n_groups + 1, np.int64)
+    group_ptr[1:] = np.cumsum(np.bincount(keys // nkt, minlength=n_groups))
+    return (group_ptr.astype(np.int32), (keys % nkt).astype(np.int32),
+            group_slot)
+
+
+def cached_group_index(plan, G: int):
+    """:func:`strip_group_index` of a plan's strip index, cached on the
+    plan per G."""
+    cache = plan.__dict__.setdefault("_group_index", {})
+    if G not in cache:
+        cache[G] = strip_group_index(*plan.strip_index(), plan.n_out_strips,
+                                     G)
+    return cache[G]
+
+
+def group_arrays(plan, G: int) -> dict:
+    """The group index over G output strips as host tensors, under the
+    names the strip kernel's wrapper reads, and group_order: the groups by
+    entries, most first (the kernel's launch order)."""
+    index = cached_group_index(plan, G)
+    order = np.argsort(-np.diff(index[0]), kind="stable").astype(np.int32)
+    return {name: torch.from_numpy(np.ascontiguousarray(v))
+            for name, v in zip(("group_ptr", "group_kt", "group_slot",
+                                "group_order"), (*index, order))}
 
 
 def _device_cache(plan, device, build):
@@ -134,16 +183,19 @@ class PanelPlan:
             object.__setattr__(self, "_strip_index", cached)
         return cached
 
+    def group_index(self, G: int):
+        """(group_ptr, group_kt, group_slot) over groups of G output
+        strips (:func:`strip_group_index`); cached."""
+        return cached_group_index(self, G)
+
     def device_arrays(self, device):
-        """Plan arrays, strip index and un-permute index on ``device``,
-        transferred once and cached."""
+        """Plan arrays, group index (GROUP_ROWS // tm strips a group) and
+        un-permute index on ``device``, transferred once and cached."""
         def build():
-            strip_ptr, src_slot, src_kt = self.strip_index()
-            arrs = {"kt": self.kt, "st": self.st, "offs": self.offs,
-                    "strip_ptr": strip_ptr, "src_slot": src_slot,
-                    "src_kt": src_kt}
+            arrs = {"kt": self.kt, "st": self.st, "offs": self.offs}
             out = {k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in arrs.items()}
+            out.update(group_arrays(self, GROUP_ROWS // self.tm))
             out["a_dense"] = plan_tensor(self.a_dense)
             if self.row_perm is not None:
                 out["inv"] = torch.from_numpy(
@@ -712,10 +764,10 @@ def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
     """Container- or plan-level entry of the panel kernel.
 
     On a CUDA tensor it launches the strip-owner kernel (``csrc/
-    strip_spmm.cu``, ``panel_strip_spmm``) or raises; on a CPU tensor it
-    runs :func:`panel_spmm_plain`.  ``mode``: "highest" (gate-exact) or
-    "split2" (verified-only).  A container resolves its geometry for b's
-    device (single supertile)."""
+    strip_spmm.cu``, ``panel_strip_spmm``, GROUP_ROWS rows a block) or
+    raises; on a CPU tensor it runs :func:`panel_spmm_plain`.  ``mode``:
+    "highest" (gate-exact) or "split2" (verified-only).  A container
+    resolves its geometry for b's device (single supertile)."""
     split2 = normalize_panel_mode(mode) == "split"  # before planning
     n = int(b.shape[1])
     if isinstance(a_or_plan, PanelPlan):

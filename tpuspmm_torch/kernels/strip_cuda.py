@@ -9,6 +9,7 @@ CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,12 +18,16 @@ from tpuspmm_torch.kernels import cuda_build
 BUILD_DIR = cuda_build.BUILD_DIR
 NVCC_FLAGS = cuda_build.NVCC_FLAGS
 ENTRY_POINTS = ("panel_strip_spmm", "pair_strip_spmm")
+# output rows one block owns: GROUP_ROWS // tm consecutive output strips
+# share each B tile.  The kernel is compiled for it (GROUP_ROWS in
+# csrc/strip_spmm.cu) and the wrapper checks the group index against it
+GROUP_ROWS = 64
 
 
 def _bind(lib) -> None:
     args = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int] + [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     for name in ENTRY_POINTS:
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -39,17 +44,25 @@ load = LIBRARY.load
 
 
 _TYPES = (torch.float32, torch.bfloat16)
+_INDEX = ("group_ptr", "group_kt", "group_slot", "group_order")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
                tm: int, tk: int, split2: bool = False) -> torch.Tensor:
     """Launch ``entry`` on the current stream: C (n_out_strips·tm, n) f32
     in the trash-free slab layout from the plan tensors in ``arrs``
-    (a_dense, strip_ptr, src_slot, src_kt on b's device), at the 2-term
-    tier when ``split2``.  Checks device, dtype, shape and contiguity, and
+    (a_dense, and group_ptr, group_kt, group_slot of the plan's group index
+    over ``GROUP_ROWS // tm`` output strips with group_order, the groups by
+    entries, most first, on b's device), at the 2-term tier when
+    ``split2``.  Checks device, dtype, shape, contiguity and alignment, and
     raises on what the kernel does not take or on a refused launch."""
     a = arrs["a_dense"]
-    idx = [arrs[k] for k in ("strip_ptr", "src_slot", "src_kt")]
+    idx = [arrs[k] for k in _INDEX]
     if b.device.type != "cuda":
         raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
     if b.dim() != 2 or b.dtype not in _TYPES or not b.is_contiguous():
@@ -62,13 +75,18 @@ def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
             raise ValueError(f"{entry}: plan tensors must be contiguous on "
                              f"{b.device}")
     if any(t.dtype != torch.int32 for t in idx):
-        raise ValueError(f"{entry}: strip index must be int32")
+        raise ValueError(f"{entry}: group index must be int32")
     if tm not in (8, 16, 32) or tk % 128:
         raise ValueError(f"{entry}: tm must be 8, 16 or 32 and tk a "
                          f"multiple of 128, got tm={tm} tk={tk}")
-    if idx[0].numel() != n_out_strips + 1:
-        raise ValueError(f"{entry}: strip_ptr has {idx[0].numel()} entries "
-                         f"for {n_out_strips} output strips")
+    G = GROUP_ROWS // tm
+    n_groups = -(-n_out_strips // G)
+    if (idx[0].numel() != n_groups + 1 or idx[3].numel() != n_groups
+            or idx[2].shape[-1:] != (G,)):
+        raise ValueError(f"{entry}: the group index is not over {G} of "
+                         f"{n_out_strips} output strips")
+    if a.data_ptr() % 16:
+        raise ValueError(f"{entry}: a_dense must be 16-byte aligned")
     k, n = b.shape
     lib = load()
     # the ctypes launch goes to the current device: make it b's
@@ -78,7 +96,8 @@ def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
         rc = getattr(lib, entry)(
             a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
             int(b.dtype == torch.bfloat16), *(t.data_ptr() for t in idx),
-            out.data_ptr(), n_out_strips, tm, tk, k, n, int(split2),
+            out.data_ptr(), n_groups, n_out_strips * tm, tm, tk, k, n,
+            _sm_count(b.device), int(split2),
             torch.cuda.current_stream(b.device).cuda_stream)
     cuda_build.check_launch(lib, "strip_spmm_error_string", entry, rc)
     return out
