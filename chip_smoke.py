@@ -12,8 +12,10 @@ Prints one JSON object per phase:
    CUDA versions; TF32 off for the plain versions;
 2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc,
    one process each, started together; ptxas's registers and spills of
-   the strip kernels, and the tensor-core instructions (HMMA, HGMMA) in
-   the strip library's SASS (cuobjdump), which must not be zero;
+   the strip and tile-owner kernels, and the tensor-core instructions
+   (HMMA, HGMMA) in those two libraries' SASS (cuobjdump), which must not
+   be zero; no tile-owner kernel may spill, and the occupancy calculator
+   must fit two of its blocks an SM;
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
    pair kernels' entry points against their plain PyTorch versions on the
    same plan at "highest" and "split2", the gate against the f64 oracle
@@ -29,17 +31,25 @@ Prints one JSON object per phase:
    row-permuted plan, widths 77, 130 and 200, an f32 plan with bf16 B) and
    at the gate, and on a matrix with no entry, which must give exact zeros;
 4. tile kernels: launch counts of the tile-plan kernels zeroed, then on
-   the same operands K3 tile, K4 staged, K5a C-resident and K5b
-   C-resident k-loop against their plain versions on one tile plan, at
-   the "split" and "split2" tiers; the gate against the f64 oracle at
-   "split"; times of kernel and plain; the plan's chunk count, sentinel
-   shares and slab count.  K5b's count is read here: no engine variant
-   reaches it, as in the JAX package.  In phases 3 and 4 a "split2"
-   result is held to SPLIT2_TOL·max|C|, and with an f32 operand the
-   f32-tier output must differ from the split2 plain by more than that
-   (the control).
-   K5a's and K5b's outputs must equal K3's bit for bit: on the card the
-   three are one owner walk over the row-major plan;
+   each of TILE_OPERANDS (large_25605 w256 at 128 x 128 and at 64 x 256
+   tiles, pruned weight (a) as CSR at w512 and w1024, medium_4096 and
+   medium_2048 at their on-disk widths, and large_25605 and weight (a)
+   at widths 77 and 130) K3 tile, K4 staged, K5a C-resident and K5b
+   C-resident k-loop: two launches at "split", bit-identical, at the
+   gate against the f64 oracle, K4's, K5a's and K5b's equal to K3's bit
+   for bit (one tile-owner routine over one tile index on the card);
+   every launch at full width, its columns (the first 128 where B is
+   wider than 256) against the plain versions on the same columns at
+   "split" and "split2"; every build of the routine (64 or 128 columns,
+   dense tiles or none, f32 or bf16 B) must be among those held; times
+   at full width (entry point, and graph-replayed device time), plain
+   times at the headline; per operand the plan's chunks, tiles, dense
+   tiles, sentinel shares, slabs, residency, the column tile, bound and
+   the cuSPARSE time.  K5b's count is read here: no engine variant
+   reaches it, as in the JAX package.
+   In phases 3 and 4 a "split2" result is held to SPLIT2_TOL·max|C|, and
+   with an f32 operand the f32-tier output must differ from the split2
+   plain by more than that (the control);
 4b. block-streaming kernel (K6): on three 4096 x 4096 weights against a
    4096 x 512 B drawn as bench/pruned_llm.py draws it, f32 and bf16: (a)
    128 x 128 blocks at 10% block density, (b) (8, 128) blocks at 2% (about
@@ -54,7 +64,8 @@ Prints one JSON object per phase:
    runs: large_25605 w256 in f32 and bf16 with the default config, and
    again with the panel strip count pinned (``Config(panel_strips=16)``),
    one record in bench.py's shape each; then the corpus dirs large_15120,
-   large_21074, medium_2048 and medium_4096, each checked at the gate.
+   large_21074, medium_2048 and medium_4096, each checked at the gate and
+   timed beside cuSPARSE on the same operand.
    The counts are read as this path's launches.  Then the BSR serving
    path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
    in f32 and bf16, each served by K6 and by no other kernel, at the gate;
@@ -80,9 +91,11 @@ Prints one JSON object per phase:
    medium_1484 (compensated), each at the gate;
 8. entry points: counts zeroed again, the panel and pair entry points on
    the serving corpus, each checked at the gate; counted apart;
-9. extreme-value dirs (medium_1484/2880/4000, large_20000): the panel and
-   pair kernels against their plain versions; the gate is printed, not
-   required (the dispatcher serves these by the compensated path);
+9. extreme-value dirs (medium_1484/2880/4000, large_20000): the route
+   ``tpuspmm_torch.spmm`` takes at the default config and its gate against
+   the f64 oracle, required on the compensated ("exact") route; the panel
+   and pair kernels against their plain versions, with the gates of both
+   printed, not required (plain f32 passes there only by luck);
 10. the kernels line (all seven kernels, with the least time the card
    could take for the work, ``bound_ms``, and the library call's time;
    the strip kernels also with their group index's work), the card line,
@@ -127,6 +140,24 @@ K6_SHAPES = ((512, 1024, (16, 256), 0.2, 2, 200),
              (512, 512, (256, 128), 0.5, 4, 130),
              (256, 512, (8, 128), 0.0, 5, 64))
 PRUNED_WIDTH = 512
+# operands of the tile-plan kernels (phase 4): (operand, B width or None
+# for the on-disk width, B dtypes, tile_m, tile_k).  "pruned_a" is weight
+# (a) as CSR; the 64-row, 256-deep plan runs 4 warps a block.  Weight (a)
+# at w1024 gives 256 blocks of 128 columns, the wide build on the tensor
+# cores (w512 gives 128 blocks, fewer than the SMs: 64 columns).  Widths
+# 77 and 130 have no 16-byte B rows (the dense path stages B with plain
+# stores) and 77 no vector rows at all; 130 on the 64-row plan takes the
+# wide build with scalar loads and stores
+TILE_OPERANDS = ((HEADLINE, WIDTH, ("f32", "bf16"), 128, 128),
+                 (HEADLINE, WIDTH, ("f32",), 64, 256),
+                 ("pruned_a", PRUNED_WIDTH, ("f32", "bf16"), 128, 128),
+                 ("pruned_a", 1024, ("f32", "bf16"), 128, 128),
+                 ("medium_4096", None, ("f32",), 128, 128),
+                 ("medium_2048", None, ("f32",), 128, 128),
+                 (HEADLINE, 77, ("f32", "bf16"), 128, 128),
+                 (HEADLINE, 130, ("f32", "bf16"), 64, 256),
+                 ("pruned_a", 77, ("f32", "bf16"), 128, 128),
+                 ("pruned_a", 130, ("f32", "bf16"), 128, 128))
 PRUNED_DIR = os.path.join(REPO, "build", "pruned_llm_b128")
 # engine runs: (cli arguments, what the run must show)
 ENGINE_RUNS = (
@@ -202,6 +233,15 @@ def bound(nbytes: float, flops: float, hbm_bytes_per_s: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fma_floor_ms": flops / F32_PEAK_FLOPS * 1e3}
+
+
+def gate_ratio(result, reference) -> float:
+    """max |result - reference| / (1e-3 + 1e-2·|reference|): at most 1
+    where the gate (``utils.compare.allclose``) passes."""
+    got = result.detach().double().cpu().numpy()
+    ref = np.asarray(reference, dtype=np.float64)
+    return float(np.max(np.abs(got - ref) / (1e-3 + 1e-2 * np.abs(ref)),
+                        initial=0.0))
 
 
 def device_ms(fn) -> float:
@@ -281,7 +321,7 @@ def main() -> int:
     from tpuspmm_torch.config import Config
     from tpuspmm_torch import cli
     from tpuspmm_torch.formats import tiles
-    from tpuspmm_torch.formats import BSR, COO
+    from tpuspmm_torch.formats import BSR, COO, CSR
     from tpuspmm_torch.formats import io as fio
     from tpuspmm_torch.kernels import (bsr_cuda, bsr_spmm, chunk_cuda,
                                        cres_spmm, csr_vmem, cuda_build,
@@ -316,18 +356,38 @@ def main() -> int:
     strip_tc, strip_kernels = tensor_core_ops(
         strip_cuda.LIBRARY.library_path())
     strip_ptxas = ptxas_report(strip_cuda.LIBRARY.build_log())
+    # so must the tile-owner routine's dense path, with no spills, and two
+    # of its blocks must fit an SM
+    chunk_tc, chunk_kernels = tensor_core_ops(
+        chunk_cuda.LIBRARY.library_path())
+    chunk_ptxas = ptxas_report(chunk_cuda.LIBRARY.build_log())
+    chunk_occupancy = {
+        f"{'bf16' if bb else 'f32'}_B_tn{128 if wide else 64}_"
+        f"{'split2' if s2 else 'split'}": chunk_cuda.blocks_per_sm(bb, wide,
+                                                                  s2)
+        for bb in (False, True) for wide in (False, True)
+        for s2 in (False, True)}
     emit("build", sources=[os.path.relpath(lib.source, REPO)
                            for lib in libraries],
          seconds=time.perf_counter() - t0,
          flags=" ".join(cuda_build.NVCC_FLAGS),
-         strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas)
-    check(strip_tc["HMMA"] + strip_tc["HGMMA"] > 0,
-          f"strip_spmm.cu has tensor-core instructions ({strip_tc})")
-    reported = {r["kernel"] for r in strip_ptxas
-                if r["spill_store_bytes"] is not None}
-    check(strip_kernels and strip_kernels <= reported,
-          f"ptxas reports registers and spills of every strip kernel "
-          f"({len(reported)} of {len(strip_kernels)})")
+         strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas,
+         chunk_tensor_core_sass=chunk_tc, chunk_ptxas=chunk_ptxas,
+         chunk_blocks_per_sm=chunk_occupancy)
+    for name, tc_ops, kernels, report_ in (
+            ("strip_spmm.cu", strip_tc, strip_kernels, strip_ptxas),
+            ("chunk_spmm.cu", chunk_tc, chunk_kernels, chunk_ptxas)):
+        check(tc_ops["HMMA"] + tc_ops["HGMMA"] > 0,
+              f"{name} has tensor-core instructions ({tc_ops})")
+        reported = {r["kernel"] for r in report_
+                    if r["spill_store_bytes"] is not None}
+        check(kernels and kernels <= reported,
+              f"ptxas reports registers and spills of every kernel of "
+              f"{name} ({len(reported)} of {len(kernels)})")
+    check(all(r["spill_store_bytes"] == 0 for r in chunk_ptxas),
+          f"no chunk_spmm.cu kernel spills ({chunk_ptxas})")
+    check(min(chunk_occupancy.values()) >= 2,
+          f"two tile-owner blocks fit an SM ({chunk_occupancy})")
 
     def load(name: str):
         d = data_dir(name)
@@ -530,103 +590,163 @@ def main() -> int:
         del sb
 
     # ---- 4. tile-plan kernels against plain versions --------------------
+    tile_ops, tile_stats = {}, {}
     tile_entries = {
         "tile": (tile_spmm.spmm_tiles,
                  lambda p, b, m: tile_spmm.spmm_tiles(p, b, mode=m),
-                 tile_spmm.tile_spmm_plain, ("split", "split2")),
+                 tile_spmm.tile_spmm_plain),
         "staged": (csr_vmem.spmm_staged,
                    lambda p, b, m: csr_vmem.spmm_staged(p, b, mode=m),
                    lambda p, b, m: csr_vmem.staged_spmm_plain(
-                       p, b, *csr_vmem.slab_geometry(p, b.device), m),
-                   ("split", "split2")),
+                       p, b, *csr_vmem.slab_geometry(p, b.device), m)),
         "cres": (cres_spmm.spmm_cres,
                  lambda p, b, m: cres_spmm.spmm_cres(p, b, mode=m),
                  lambda p, b, m: cres_spmm.cres_spmm_plain(p, b, m,
-                                                           "block8"),
-                 ("split", "split2")),
+                                                           "block8")),
         "cres_kloop": (cres_spmm.spmm_cres_kloop,
                        lambda p, b, m: cres_spmm.spmm_cres_kloop(p, b, m),
                        lambda p, b, m: cres_spmm.cres_spmm_plain(p, b, m,
-                                                                 "kloop"),
-                       ("split", "split2")),
+                                                                 "kloop")),
     }
     for counter, *_ in tile_entries.values():
         counter.launches = 0
-    tplan = tiles.plan_from_container(a)
-    blk = cres_spmm._kmajor_blocks(tplan)
-    num_slabs, slab_k = csr_vmem.slab_geometry(tplan, dev)
-    emit("tile_plan", testcase=HEADLINE, chunks=tplan.num_chunks,
-         nnz_per_chunk=a.nnz / tplan.num_chunks,
-         sentinel_slot_share=float((tplan.rows < 0).mean()),
-         block8_sentinel_chunk_share=float((blk["rt8"] < 0).mean()),
-         num_slabs=num_slabs, slab_k=slab_k,
-         residency={"staged": csr_vmem.residency(tplan, dev),
-                    "cres": cres_spmm.residency(tplan, dev)})
-    # K3, K5a and K5b run one owner walk over the row-major plan on the
-    # card: their outputs must be bit-identical
-    tile_out = {}
-    for name, (counter, fn, plain, modes) in tile_entries.items():
-        stats[name] = {"max_abs_err": 0.0}
-        for b in (b32, b16):
-            tag = "f32" if b.dtype == torch.float32 else "bf16"
-            f32_tier = None
-            for mode in modes:
-                before = counter.launches
-                got = fn(tplan, b, mode)
-                torch.cuda.synchronize()
-                check(counter.launches == before + 1,
-                      f"{name} launch counter rose")
-                want = plain(tplan, b, mode)
-                torch.cuda.synchronize()
-                check(got.shape == want.shape
-                      and bool(torch.isfinite(got).all()),
-                      f"{name} output finite, shape {tuple(want.shape)}")
-                err = max_abs_err(got, want)
-                scale = float(want.abs().max())
-                tol = plain_tol(mode)
-                check(err <= tol * scale,
-                      f"{name} {mode} |kernel - plain| {err} <= "
-                      f"{tol}*{scale}")
-                gate = allclose(got, refs[b.dtype])
-                rec = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
-                       "tolerance": f"{tol}*max|C|"}
-                if mode == "split2" and b.dtype == torch.float32:
-                    rec["control"] = split2_control(name, f32_tier, want)
-                if name == "tile":
-                    tile_out[tag, mode] = got
-                elif name in ("cres", "cres_kloop"):
-                    rec["bit_identical_to_tile"] = bool(
-                        torch.equal(got, tile_out[tag, mode]))
-                    check(rec["bit_identical_to_tile"],
-                          f"{name} {tag} {mode} output equals K3's")
-                if mode == "split":
-                    stats[name]["max_abs_err"] = max(
-                        stats[name]["max_abs_err"], err)
-                    check(gate, f"{name} {tag} gate vs f64 oracle")
-                    rec["ms"] = cuda_time_ms(lambda: fn(tplan, b, mode))
-                    rec["plain_ms"] = cuda_time_ms(
-                        lambda: plain(tplan, b, mode))
-                    stats[name][f"ms_{tag}"] = rec["ms"]
-                    stats[name][f"plain_ms_{tag}"] = rec["plain_ms"]
-                    f32_tier = got  # on the card "split" is f32 FMAs
-                else:
-                    stats[name]["max_abs_err_split2"] = max(
-                        stats[name].get("max_abs_err_split2", 0.0), err)
-                emit("tile_kernel_vs_plain", kernel=name, testcase=HEADLINE,
-                     b_dtype=tag, mode=mode, **rec)
-                del got, want
-            del f32_tier
-    del tile_out
-    tile_window = {name: counter.launches
-                   for name, (counter, *_) in tile_entries.items()}
-    emit("tile_kernel_launches", **tile_window)
-
-    # ---- 4b. block-streaming kernel (K6) against its plain version -------
     hbm = report.hbm_gbps(gpu) * 1e9
     pb32 = torch.from_numpy((np.random.default_rng(0).standard_normal(
         (4096, PRUNED_WIDTH)) * 0.05).astype(np.float32)).to(dev)
     pb16 = pb32.to(torch.bfloat16)
     weights = {name: BSR.random_blocks(*args) for name, args in PRUNED.items()}
+
+    pruned_csr = CSR.from_scipy(weights["a"].to_scipy().tocsr())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def tile_operand(name, width):
+        """(CSR container, f32 B on the card, f64 oracle of f32 B).  B of
+        weight (a) is pb32's first columns, or drawn as it is; the
+        headline's B is b32's first columns."""
+        if name == "pruned_a":
+            ob = (pb32[:, :width].contiguous() if width <= PRUNED_WIDTH
+                  else torch.from_numpy((np.random.default_rng(0)
+                                         .standard_normal((4096, width))
+                                         * 0.05).astype(np.float32)).to(dev))
+            return (pruned_csr, ob,
+                    oracle.spmm_scipy_oracle(pruned_csr, ob.cpu().numpy()))
+        if name == HEADLINE:
+            check(width <= b32.shape[1], f"{HEADLINE} B has {width} columns")
+            return (a, b32[:, :width].contiguous(),
+                    refs[torch.float32][:, :width])
+        ca = convert.load_sparse(data_dir(name), "csr")
+        cd = convert.load_dense(data_dir(name), width=width)
+        return (ca, torch.from_numpy(cd.data).to(dev),
+                oracle.spmm_scipy_oracle(ca, cd.data))
+
+    for op_name, width, dtypes, tm, tk in TILE_OPERANDS:
+        ca, ob32, oref = tile_operand(op_name, width)
+        headline = (op_name, width, tm, tk) == (HEADLINE, WIDTH, 128, 128)
+        tplan = tiles.plan_from_container(ca, tile_m=tm, tile_k=tk)
+        index = tile_spmm.host_index(tplan, tile_spmm.dense_min(tk, False))
+        blk = cres_spmm._kmajor_blocks(tplan)
+        num_slabs, slab_k = csr_vmem.slab_geometry(tplan, dev)
+        n_op = int(ob32.shape[1])
+        # the routine's column tile for this grid (chunk_spmm.cu:
+        # owner_spmm): 128 unless fewer blocks than SMs
+        column_tile = 128 if tplan.num_row_tiles * -(-n_op // 128) >= sms \
+            else 64
+        op = {"operand": op_name, "width": n_op, "tile_m": tm, "tile_k": tk,
+              "column_tile": column_tile,
+              "nnz": int(ca.nnz), "chunks": tplan.num_chunks,
+              "tiles": len(index["tile_nnz"]),
+              "dense_tiles": int(index["tile_dense"].sum()),
+              "gathered_nnz": int(index["g_val"].size),
+              "sentinel_slot_share": float((tplan.rows < 0).mean()),
+              "block8_sentinel_chunk_share": float((blk["rt8"] < 0).mean()),
+              "num_slabs": num_slabs, "slab_k": slab_k,
+              "residency": {"staged": csr_vmem.residency(tplan, dev),
+                            "cres": cres_spmm.residency(tplan, dev)},
+              "cusparse_ms": cuda_time_ms(
+                  lambda: vendor.spmm_vendor(ca, ob32)),
+              **bound(report.spmm_min_bytes(ca.nnz, *ca.shape, n_op),
+                      report.spmm_flops(ca.nnz, n_op), hbm)}
+        emit("tile_plan", **op)
+        tile_ops[op_name, n_op, tm, tk] = op
+        for tag in dtypes:
+            b = ob32 if tag == "f32" else ob32.to(torch.bfloat16)
+            ref = (oref if tag == "f32" else oracle.spmm_scipy_oracle(
+                ca, b.float().cpu().numpy()))
+            # every launch runs at full width, the build the timed run
+            # takes; its first ncmp columns (all of them up to WIDTH, else
+            # 128: the columns are independent) are held to the plain
+            # version on the same columns of B
+            ncmp = n_op if n_op <= WIDTH else 128
+            b_cmp = b if ncmp == n_op else b[:, :ncmp].contiguous()
+            k3_out = {}
+            for name, (counter, fn, plain) in tile_entries.items():
+                rec = {"testcase": op_name, "kernel": name, "b_dtype": tag,
+                       "width": n_op, "tile_m": tm, "tile_k": tk,
+                       "column_tile": column_tile,
+                       "dense_tiles": op["dense_tiles"],
+                       "compared_columns": ncmp}
+                before = counter.launches
+                got = fn(tplan, b, "split")
+                again = fn(tplan, b, "split")
+                torch.cuda.synchronize()
+                check(counter.launches == before + 2,
+                      f"{name} launch counter rose")
+                check(got.shape == (ca.shape[0], n_op)
+                      and bool(torch.isfinite(got).all()),
+                      f"{name} {op_name} output finite, shape")
+                check(torch.equal(got, again), f"{name} {op_name} {tag} two "
+                      "launches give bit-identical output")
+                rec["gate"] = allclose(got, ref)
+                check(rec["gate"], f"{name} {op_name} {tag} gate vs f64 "
+                                   "oracle")
+                # one routine and one index on the card: K4, K5a and K5b
+                # give K3's bits
+                if name == "tile":
+                    k3_out["out"] = got
+                else:
+                    rec["bit_identical_to_tile"] = bool(
+                        torch.equal(got, k3_out["out"]))
+                    check(rec["bit_identical_to_tile"],
+                          f"{name} {op_name} {tag} output equals K3's")
+                del again
+                for mode in ("split", "split2"):
+                    full = got if mode == "split" else fn(tplan, b, mode)
+                    want = plain(tplan, b_cmp, mode)
+                    torch.cuda.synchronize()
+                    err = max_abs_err(full[:, :ncmp], want)
+                    scale = float(want.abs().max())
+                    tol = plain_tol(mode)
+                    check(err <= tol * scale,
+                          f"{name} {op_name} w{n_op} {tag} {mode} |kernel - "
+                          f"plain| {err} <= {tol}*{scale}")
+                    rec[mode] = {"max_abs_err": err, "max_abs_c": scale,
+                                 "tolerance": f"{tol}*max|C|"}
+                    if mode == "split2" and tag == "f32":
+                        rec["split2"]["control"] = split2_control(
+                            name, got[:, :ncmp], want)
+                    del full, want
+                del got
+                rec["ms"] = cuda_time_ms(lambda: fn(tplan, b, "split"))
+                rec["device_ms"] = device_ms(lambda: fn(tplan, b, "split"))
+                if headline:
+                    rec["plain_ms"] = cuda_time_ms(
+                        lambda: plain(tplan, b, "split"))
+                emit("tile_kernel_vs_plain", **rec)
+                tile_stats[name, op_name, n_op, tm, tk, tag] = rec
+            del k3_out
+            if tag == "bf16":
+                del b
+    # every build of the routine was held to its plain version: each
+    # column tile, with and without dense tiles, with f32 and bf16 B
+    held = {(r["column_tile"], r["dense_tiles"] > 0, r["b_dtype"])
+            for r in tile_stats.values()}
+    check(len(held) == 8, f"phase 4 runs every build of the tile-owner "
+                          f"routine ({sorted(held)})")
+    tile_window = {name: counter.launches
+                   for name, (counter, *_) in tile_entries.items()}
+    emit("tile_kernel_launches", **tile_window)
+
+    # ---- 4b. block-streaming kernel (K6) against its plain version -------
     weights["c"] = BSR.from_scipy(weights["a"].to_scipy(), (4, 4))
     packed = bsr_spmm.pack_blocks(weights["c"])
     check(packed is not None and packed.block_size == (128, 128)
@@ -799,10 +919,14 @@ def main() -> int:
         out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b))
         check(allclose(out, ref), f"{name} dispatch gate")
         ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b))
+        # the library call on the same operand, timed here only
+        lib_ms = cuda_time_ms(lambda: vendor.spmm_vendor(ca, b))
         emit("corpus", **report.make_record(
             testcase=name, sparsity=ca.sparsity, fmt="csr", kernel_type=0,
             kernel_name=served, correct=True, kernel_ms=ms, n=b.shape[1],
-            device=gpu, extra={"bSource": cdense.b_source}))
+            device=gpu, extra={"bSource": cdense.b_source,
+                               "cusparse_ms": lib_ms,
+                               "vs_cusparse": lib_ms / ms}))
         corpus[name] = (ca, b, ref)
         del out
 
@@ -948,15 +1072,25 @@ def main() -> int:
     for name, count in entry_launches.items():
         check(count > 0, f"{name} kernel launched through its entry point")
 
-    # ---- 9. extreme-value dirs: kernels against plain versions ----------
+    # ---- 9. extreme-value dirs: spmm's route and gate; kernels vs plain --
     for name in EXTREME_CORPUS:
         ca, cdense = load(name)
         b = torch.from_numpy(cdense.data).to(dev)
         ref = oracle.spmm_scipy_oracle(ca, cdense.data)
-        cplans, _ = main_path_plans(ca, ((b.shape[1] + 127) // 128) * 128)
+        got_route = dispatch.route(ca, b)
+        served = tpuspmm_torch.spmm(ca, b)
         rec = {"needs_compensated": exact.needs_compensated(ca),
                "exact_admissible": exact.exact_admissible(ca),
-               "bCols": int(b.shape[1])}
+               "bCols": int(b.shape[1]), "route": got_route,
+               "spmm_gate": allclose(served, ref),
+               "spmm_gate_ratio": gate_ratio(served, ref)}
+        del served
+        # the compensated / exact path must pass; a plain-f32 route (panel
+        # or pair where exact is not admissible) is recorded
+        if got_route == "exact":
+            check(rec["spmm_gate"], f"{name}: spmm by {got_route} at the "
+                                    "gate vs f64 oracle")
+        cplans, _ = main_path_plans(ca, ((b.shape[1] + 127) // 128) * 128)
         for kname, plan in cplans.items():
             # held to PLAIN_TOL·max|C| inside against_plain; the kernels
             # line reports the headline's absolute errors, not these
@@ -964,17 +1098,20 @@ def main() -> int:
             r = against_plain(kname, plan, b, timed=False)
             rec[kname] = {"max_abs_err": r["max_abs_err"],
                           "max_abs_c": r["max_abs_c"],
-                          "gate": allclose(r["out"], ref)}
+                          "gate": allclose(r["out"], ref),
+                          "gate_ratio": gate_ratio(r["out"], ref),
+                          "plain_gate": allclose(r["want"], ref),
+                          "plain_gate_ratio": gate_ratio(r["want"], ref)}
             del r
         emit("extreme_values", testcase=name, **rec,
-             note="|values| beyond the 2e4 cut-off: a plain-f32 result "
-                  "passes the gate only by luck of the operand, so the "
-                  "gate is printed, not required; the dispatcher serves "
-                  "these by the compensated path where admissible")
+             note="|values| beyond the 2e4 cut-off: spmm's gate is "
+                  "required on the compensated route; a plain-f32 result "
+                  "passes only by luck of the operand, so the panel / pair "
+                  "gates are printed beside their plain versions'")
         del b
 
     # ---- 10. kernels line, card, ok --------------------------------------
-    kernels = {  # name: (C entry, source, TPU kernel body it replaces)
+    kernels = {  # name: (entry, source, TPU kernel body it replaces)
         "panel": ("panel_strip_spmm", "strip_spmm.cu",
                   "tpuspmm/kernels/panel_spmm.py:1050"),
         "pair": ("pair_strip_spmm", "strip_spmm.cu",
@@ -999,7 +1136,9 @@ def main() -> int:
         line = {"name": entry, "route": "cuda",
                 "source": f"tpuspmm_torch/csrc/{source}",
                 "replaces": replaces, "launches": count,
-                "launches_window": window,
+                "launches_window": window}
+        if name in launches:
+            line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
                 "max_abs_err_split2": stats[name].get("max_abs_err_split2"),
                 "ms": stats[name]["ms_f32"],
@@ -1007,17 +1146,40 @@ def main() -> int:
                 "ms_bf16": stats[name]["ms_bf16"],
                 "plain_ms_bf16": stats[name]["plain_ms_bf16"],
                 **csr_bound, "library_ms": vendor_ms,
-                "library_call": "torch.sparse CSR @ B (cuSPARSE)",
-                "shapes": f"{HEADLINE} w{WIDTH}"}
-        if name in ("cres", "cres_kloop"):
-            line["note"] = ("the owner walk of tile_chunk_spmm over the "
-                            "row-major plan: output bit-identical to K3's")
-        if name in launches:
-            line["engine_launches"] = engine_launches[name]
-            line["entry_point_launches"] = entry_launches[name]
-            line["device_ms"] = stats[name]["device_ms_f32"]
-            line["device_ms_bf16"] = stats[name]["device_ms_bf16"]
-            line.update(stats[name]["work"])
+                "engine_launches": engine_launches[name],
+                "entry_point_launches": entry_launches[name],
+                "device_ms": stats[name]["device_ms_f32"],
+                "device_ms_bf16": stats[name]["device_ms_bf16"],
+                **stats[name]["work"]})
+        else:  # the tile family: the headline, then every phase-4 operand
+            op = tile_ops[HEADLINE, WIDTH, 128, 128]
+            r32 = tile_stats[name, HEADLINE, WIDTH, 128, 128, "f32"]
+            r16 = tile_stats[name, HEADLINE, WIDTH, 128, 128, "bf16"]
+            line.update({
+                "max_abs_err": r32["split"]["max_abs_err"],
+                "max_abs_err_split2": r32["split2"]["max_abs_err"],
+                "ms": r32["ms"], "plain_ms": r32["plain_ms"],
+                "device_ms": r32["device_ms"],
+                "ms_bf16": r16["ms"], "plain_ms_bf16": r16["plain_ms"],
+                "device_ms_bf16": r16["device_ms"],
+                "bound_ms": op["bound_ms"], "bound_by": op["bound_by"],
+                "fma_floor_ms": op["fma_floor_ms"],
+                "library_ms": op["cusparse_ms"],
+                "operands": [
+                    {"operand": f"{o} tm{tm} tk{tk} w{w}",
+                     "b_dtype": tag, "ms": r["ms"],
+                     "device_ms": r["device_ms"],
+                     "bound_ms": tile_ops[o, w, tm, tk]["bound_ms"],
+                     "cusparse_ms": tile_ops[o, w, tm, tk]["cusparse_ms"],
+                     "max_abs_err": r["split"]["max_abs_err"],
+                     "max_abs_c": r["split"]["max_abs_c"]}
+                    for (kname, o, w, tm, tk, tag), r in tile_stats.items()
+                    if kname == name]})
+            line["note"] = ("one tile-owner routine and one tile index for "
+                            "K3, K4, K5a and K5b: output bit-identical to "
+                            "K3's")
+        line.update({"library_call": "torch.sparse CSR @ B (cuSPARSE)",
+                     "shapes": f"{HEADLINE} w{WIDTH}"})
         lines.append(line)
     ka = k6_stats["a"]
     lib_ms = ka.get("torch_bsr_ms")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of the strip-owner kernel (csrc/strip_spmm.cu) on one
-NVIDIA GPU.
+"""Time variants of the strip-owner kernel (csrc/strip_spmm.cu) and of the
+tile-owner routine (csrc/chunk_spmm.cu) on one NVIDIA GPU.
 
 Run from the repository root:
 
     python3 strip_sweep.py [--variants NAME,NAME,...]
+    python3 strip_sweep.py --chunk [--variants NAME,NAME,...]
     python3 strip_sweep.py --profile-host
 
 Each variant is a copy of the source with some of its lines replaced
@@ -20,6 +21,15 @@ captured in a CUDA graph (device time), ``call_ms`` calls the wrapper
 the card line, one JSON line per variant with ptxas's registers and spills
 per kernel, and one JSON line per (case, B dtype) with each variant's ms.
 ``--profile-host`` instead profiles the host side of serving calls.
+
+``--chunk`` sweeps the tile-owner routine (K3, K4, K5a, K5b) instead:
+CHUNK_VARIANTS patch its source (column tile, ring depth, launch order,
+gathered rows in flight) or change what the host hands it (the dense
+path's threshold, with every tile gathered and every tile dense as
+controls; a 64-row tile, which runs 4 warps a block), on CHUNK_CASES.
+Each variant runs K3's entry on the tile plan, is held against the plain
+version on a 128-column slice of B (1e-4·max|C|) and timed as above
+(``ms``: graph replay; ``call_ms``: the wrapper).
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import argparse
 import ctypes
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -68,6 +79,50 @@ VARIANTS = {
     "kc32": [const("KC", 64, 32), const("MAX_STAGES", 8, 16)],
     "rows128": [const("GROUP_ROWS", 64, 128), const("BLOCKS", 2, 1)],
 }
+# name: ([(text of chunk_spmm.cu, its replacement), ...], dense threshold
+# in nonzeros per tile_k (None: the routine's, tile_spmm.DENSE_PER_TILE_K),
+# tile_m)
+CHUNK_WIDE = ("const int wide = (long long)num_tiles * ((n + WIDE_TN - 1) / "
+              "WIDE_TN) >= sms;")
+# the gather's loads back to back, and each after its own shuffles
+CHUNK_LOADS = """#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (j + u < cnt)
+          load_b<VEC>(raw[u], b + (size_t)kr[u] * n, col, n, vec);"""
+CHUNK_LOADS_INTERLEAVED = """#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        kr[u] = __shfl_sync(FULL, my_col, (j + u) & 31);
+        vv[u] = __shfl_sync(FULL, my_val, (j + u) & 31);
+        if (j + u < cnt)
+          load_b<VEC>(raw[u], b + (size_t)kr[u] * n, col, n, vec);
+      }"""
+CHUNK_VARIANTS = {
+    "serving": ([], None, 128),
+    "gather_only": ([], math.inf, 128),
+    "dense_only": ([], 0.0, 128),
+    "dense_1x": ([], 1.0, 128),
+    "dense_4x": ([], 4.0, 128),
+    "dense_32x": ([], 32.0, 128),
+    "tn64": ([(CHUNK_WIDE, "const int wide = 0;")], None, 128),
+    "tn128": ([(CHUNK_WIDE, "const int wide = 1;")], None, 128),
+    "warps4_tm64": ([], None, 64),
+    "two_stages": ([const("MAX_STAGES", 4, 2)], None, 128),
+    "index_order": ([("const int rt = ix.order[blockIdx.x / ncol];",
+                      "const int rt = blockIdx.x / ncol;")], None,
+                    128),
+    "unroll4": ([const("UNROLL", 8, 4)], None, 128),
+    "unroll16": ([const("UNROLL", 8, 16)], None, 128),
+    "smem_always": ([("n_dense > 0 ? C::SMEM : 0", "C::SMEM")],
+                    None, 128),
+    "shuffle_each_load": ([(CHUNK_LOADS, CHUNK_LOADS_INTERLEAVED)],
+                          None, 128),
+}
+# (operand, B width or None for the on-disk width, B dtypes); "pruned_a"
+# is chip_smoke.py's pruned weight (a) as CSR, B drawn as there
+CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
+               ("pruned_a", 512, ("f32", "bf16")),
+               ("medium_4096", None, ("f32",)),
+               ("medium_2048", None, ("f32",)))
 # (corpus dir, B width or None for the on-disk width, B dtypes)
 CASES = (("large_25605", 256, ("f32", "bf16")),
          ("large_21074", 256, ("f32", "bf16")),
@@ -75,9 +130,12 @@ CASES = (("large_25605", 256, ("f32", "bf16")),
 PLAIN_TOL = 1e-4
 
 
-def build(name: str, patches: list, nvcc: str, flags, source: str) -> dict:
-    """Build the source with ``patches`` applied into OUT; the record
-    holds the library's path, its group rows and ptxas's report."""
+def build(name: str, patches: list, nvcc: str, flags, source: str,
+          out: str = OUT) -> dict:
+    """Build the source with ``patches`` applied into ``out`` (OUT for the
+    strip variants, its ``chunk`` folder for the chunk variants, whose
+    names overlap); the record holds the library's path, its group rows
+    and ptxas's report."""
     with open(source) as f:
         text = f.read()
     for old, new in patches:
@@ -85,11 +143,11 @@ def build(name: str, patches: list, nvcc: str, flags, source: str) -> dict:
             return {"name": name, "error": f"{old!r} is not in the source "
                                            "exactly once"}
         text = text.replace(old, new)
-    os.makedirs(OUT, exist_ok=True)
-    src = os.path.join(OUT, f"{name}.cu")
+    os.makedirs(out, exist_ok=True)
+    src = os.path.join(out, f"{name}.cu")
     with open(src, "w") as f:
         f.write(text)
-    path = os.path.join(OUT, f"lib{name}.so")
+    path = os.path.join(out, f"lib{name}.so")
     res = subprocess.run([nvcc, *flags, "-I", os.path.dirname(source), "-o",
                           path, src], capture_output=True, text=True)
     log = res.stdout + res.stderr
@@ -97,7 +155,7 @@ def build(name: str, patches: list, nvcc: str, flags, source: str) -> dict:
         return {"name": name, "error": log[-2000:]}
     rows = re.search(r"constexpr int GROUP_ROWS = (\d+);", text)
     return {"name": name, "path": path, "patches": patches,
-            "group_rows": int(rows.group(1)),
+            "group_rows": int(rows.group(1)) if rows else None,
             "registers": [int(r) for r in re.findall(r"Used (\d+) registers",
                                                      log)],
             "spill_store_bytes": [int(s) for s in re.findall(
@@ -106,15 +164,15 @@ def build(name: str, patches: list, nvcc: str, flags, source: str) -> dict:
 
 def profile_host() -> int:
     """cProfile of the host work of ``tpuspmm_torch.spmm`` and of the
-    panel entry point on a prebuilt plan, large_25605 w256 with bf16 B
-    (the device time is below the host time there)."""
+    panel and tile (K3) entry points on a prebuilt plan, large_25605 w256
+    with bf16 B (the device time is below the host time there)."""
     import cProfile
     import pstats
 
     import tpuspmm_torch
     from tpuspmm_torch.data import data_dir
-    from tpuspmm_torch.formats import convert
-    from tpuspmm_torch.kernels import panel_spmm
+    from tpuspmm_torch.formats import convert, tiles
+    from tpuspmm_torch.kernels import panel_spmm, tile_spmm
 
     a = convert.load_sparse(data_dir("large_25605"), "csr")
     dense = convert.load_dense(data_dir("large_25605"), width=256)
@@ -122,9 +180,12 @@ def profile_host() -> int:
     geom = panel_spmm.resolve_panel_geometry(
         a, 256, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP, device=b.device)
     plan = panel_spmm.panel_plan_from_geometry(a, geom)
+    tplan = tiles.plan_from_container(a)
     for name, call in (("spmm", lambda: tpuspmm_torch.spmm(a, b)),
                        ("spmm_panel", lambda: panel_spmm.spmm_panel(plan,
-                                                                    b))):
+                                                                    b)),
+                       ("spmm_tiles", lambda: tile_spmm.spmm_tiles(tplan,
+                                                                   b))):
         for _ in range(20):
             call()
         torch.cuda.synchronize()
@@ -141,6 +202,107 @@ def profile_host() -> int:
     return 0
 
 
+def chunk_operand(case: str, width):
+    """(CSR container, f32 B as numpy) of a CHUNK_CASES operand."""
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import BSR, CSR, convert
+
+    if case == "pruned_a":
+        w = BSR.random_blocks(4096, 4096, (128, 128), 0.1, 0)
+        b = np.random.default_rng(0).standard_normal((4096, width)) * 0.05
+        return CSR.from_scipy(w.to_scipy().tocsr()), b.astype(np.float32)
+    return (convert.load_sparse(data_dir(case), "csr"),
+            convert.load_dense(data_dir(case), width=width).data)
+
+
+def chunk_sweep(names: list) -> int:
+    """Build and time CHUNK_VARIANTS on CHUNK_CASES (see the module
+    docstring); prints one JSON line per variant build and one per (case,
+    B dtype)."""
+    from tpuspmm_torch.formats import tiles
+    from tpuspmm_torch.kernels import chunk_cuda, cuda_build, tile_spmm
+    from tpuspmm_torch.utils.compare import max_abs_err
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(
+            lambda name: build(name, CHUNK_VARIANTS[name][0],
+                               cuda_build.nvcc(), cuda_build.NVCC_FLAGS,
+                               chunk_cuda.SOURCE,
+                               os.path.join(OUT, "chunk")), names))
+    libs = {}
+    for rec in built:
+        print(json.dumps({k: v for k, v in rec.items()
+                          if k not in ("path", "group_rows")}), flush=True)
+        if "path" in rec:
+            libs[rec["name"]] = ctypes.CDLL(rec["path"])
+            chunk_cuda._bind(libs[rec["name"]])
+    dev = torch.device("cuda")
+    for case, width, dtypes in CHUNK_CASES:
+        a, b_np = chunk_operand(case, width)
+        b32 = torch.from_numpy(b_np).to(dev)
+
+        def plan_of(name):
+            return tiles.plan_from_container(
+                a, tile_m=CHUNK_VARIANTS[name][2])
+
+        def index(name):
+            _, per_k, _ = CHUNK_VARIANTS[name]
+            per_k = tile_spmm.DENSE_PER_TILE_K if per_k is None else per_k
+            plan = plan_of(name)
+            # per_k·tile_k nonzeros, where the routine takes dense tiles
+            takes = math.isfinite(tile_spmm.dense_min(plan.tile_k, False))
+            return plan, tile_spmm.index_arrays(
+                plan, dev, per_k * plan.tile_k if takes else math.inf)
+
+        for tag in dtypes:
+            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
+            b_slice = b[:, :128].contiguous()
+
+            def run(name, operand):
+                # K3's wrapper, launching this variant's library
+                plan, idx = index(name)
+                chunk_cuda.load = lambda: libs[name]
+                return chunk_cuda.launch("tile_chunk_spmm", idx, operand,
+                                         plan.shape[0], plan.tile_m,
+                                         plan.tile_k, False)
+
+            serving = tile_spmm.host_index(
+                plan_of("serving"), tile_spmm.dense_min(128, False))
+            rec = {"case": case, "b": tag, "width": int(b.shape[1]),
+                   "nnz": int(a.nnz), "tiles": len(serving["tile_nnz"]),
+                   "dense_tiles": int(serving["tile_dense"].sum()),
+                   "err": {}, "ms": {}, "call_ms": {}}
+            plains = {}
+            for name in libs:
+                tm = CHUNK_VARIANTS[name][2]
+                if tm not in plains:
+                    plains[tm] = tile_spmm.tile_spmm_plain(plan_of(name),
+                                                           b_slice, "split")
+                got = run(name, b_slice)
+                torch.cuda.synchronize()
+                rec["err"][name] = (max_abs_err(got, plains[tm])
+                                    / float(plains[tm].abs().max()))
+            graphs = {}
+            for name in libs:
+                run(name, b)  # the index on the device before capture
+                graphs[name] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[name]):
+                    run(name, b)
+            torch.cuda.synchronize()
+            times = {name: [] for name in libs}
+            calls = {name: [] for name in libs}
+            for name in list(libs) + list(libs)[::-1]:
+                times[name].append(cuda_time_ms(graphs[name].replay))
+                calls[name].append(cuda_time_ms(lambda: run(name, b)))
+            rec["ms"] = {k: min(v) for k, v in times.items()}
+            rec["call_ms"] = {k: min(v) for k, v in calls.items()}
+            rec["ok"] = all(e <= PLAIN_TOL for e in rec["err"].values())
+            print(json.dumps(rec), flush=True)
+            del graphs, plains
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("strip_sweep: no CUDA device", file=sys.stderr)
@@ -153,18 +315,24 @@ def main() -> int:
     from tpuspmm_torch.utils.timing import cuda_time_ms
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated variant names (default: all)")
+    ap.add_argument("--chunk", action="store_true",
+                    help="sweep the tile-owner routine's CHUNK_VARIANTS")
     ap.add_argument("--profile-host", action="store_true",
                     help="only profile the host side of 200 serves of "
                          "large_25605 w256 with bf16 B (cProfile)")
     args = ap.parse_args()
     if args.profile_host:
         return profile_host()
-    names = args.variants.split(",")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    variants = CHUNK_VARIANTS if args.chunk else VARIANTS
+    names = (args.variants.split(",") if args.variants else list(variants))
+    if args.chunk:
+        return chunk_sweep(names)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(
             lambda name: build(name, VARIANTS[name], cuda_build.nvcc(),

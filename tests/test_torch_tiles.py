@@ -11,6 +11,8 @@ so a port that computed plain f32 products at "split2" would fail; the
 test shows it does.
 """
 
+import re
+
 import numpy as np
 import pytest
 import scipy.sparse
@@ -24,7 +26,7 @@ from tpuspmm.kernels import csr_vmem as jk4
 from tpuspmm.kernels import tile_spmm as jk3
 from tpuspmm_torch import interop
 from tpuspmm_torch.formats import tiles
-from tpuspmm_torch.kernels import cres_spmm, csr_vmem, tile_spmm
+from tpuspmm_torch.kernels import chunk_cuda, cres_spmm, csr_vmem, tile_spmm
 
 TOL = 2.0 ** -20
 
@@ -250,43 +252,255 @@ def test_plain_batches_change_nothing(monkeypatch):
     assert torch.equal(tile_spmm.tile_spmm_plain(tp, tb, "split"), whole)
 
 
-def owner_walk(plan, b):
-    """Pure-torch walk of what the owner-walk kernel (K3, K5a and K5b on
-    the card) reads: row tile r's chunks [tile_ptr[r], tile_ptr[r+1]) of
-    the row-major plan, padding slots (row -1) skipped, in f64."""
-    arrs = tile_spmm.owner_arrays(plan, "cpu")
-    ptr = arrs["tile_ptr"].tolist()
+def index_of(plan, min_dense):
+    """The tile index that K3, K4, K5a and K5b read on the card."""
+    return tile_spmm.host_index(plan, min_dense)
+
+
+def slab_walk(plan, num_slabs, kts_per_slab):
+    """K4's slab layout as a chunk walk: (rt, kt, rows, cols, vals) per
+    chunk, in (row tile, slab) range order."""
+    arrs = csr_vmem._slab_arrays(plan, num_slabs, kts_per_slab)
+    lengths = arrs["end"] - arrs["start"]
+    rt = np.repeat(np.arange(lengths.size) // num_slabs, lengths)
+    return rt, arrs["kt"], arrs["rows"], arrs["cols"], arrs["vals"]
+
+
+def owner_walk(plan, b, min_dense):
+    """Pure-torch replay of what the tile-owner routine (K3, K4, K5a, K5b
+    on the card) reads, in f64: per row tile its dense tiles' A @ B panel,
+    then per output row its sparse nonzeros in index order."""
+    ix = index_of(plan, min_dense)
     tm, tk = plan.tile_m, plan.tile_k
     bp = torch.zeros(plan.num_k_tiles * tk, b.shape[1], dtype=torch.float64)
     bp[:b.shape[0]] = b.double()
     out = torch.zeros(plan.num_row_tiles * tm, b.shape[1],
                       dtype=torch.float64)
+    d_a = torch.from_numpy(ix["d_a"]).double()
     for r in range(plan.num_row_tiles):
-        for c in range(ptr[r], ptr[r + 1]):
-            keep = arrs["rows"][c] >= 0
-            rows = arrs["rows"][c][keep].long() + r * tm
-            krows = int(arrs["kt"][c]) * tk + arrs["cols"][c][keep].long()
-            out.index_add_(0, rows, arrs["vals"][c][keep].double()
-                           .unsqueeze(-1) * bp[krows])
+        for t in range(ix["d_ptr"][r], ix["d_ptr"][r + 1]):
+            k0 = int(ix["d_kt"][t]) * tk
+            out[r * tm:(r + 1) * tm] += d_a[t, :tm] @ bp[k0:k0 + tk]
+    rows = torch.from_numpy(np.repeat(np.arange(len(ix["row_ptr"]) - 1),
+                                      np.diff(ix["row_ptr"])))
+    vals = torch.from_numpy(ix["g_val"]).double().unsqueeze(-1)
+    out.index_add_(0, rows, vals * bp[torch.from_numpy(ix["g_col"]).long()])
     return out[:plan.shape[0]]
 
 
+# thresholds of the dense path at tile_k 128: the routine's default
+# (DENSE_PER_TILE_K·tile_k), one nonzero per k row, every tile dense,
+# every tile gathered ("split2")
+THRESHOLDS = {"default": 1024.0, "one_per_k": 128.0, "all_dense": 0.0,
+              "all_sparse": float("inf")}
+
+
+@pytest.mark.parametrize("threshold", list(THRESHOLDS))
 @pytest.mark.parametrize("case", [*CASES, "empty"])
-def test_owner_walk_reproduces_every_plain_layout(case):
-    """The card walks the row-major plan for K3, K5a and K5b: every chunk
-    once, each row tile's in ascending k tile.  That walk equals the plain
-    versions over the row-major, block8 and kloop layouts."""
+def test_owner_walk_reproduces_every_plain_layout(case, threshold):
+    """The card walks one tile index for K3, K4, K5a and K5b: every
+    nonzero once, dense tiles on the tensor cores, the rest gathered.  Its
+    replay equals the plain versions over the row-major, slab, block8 and
+    kloop layouts."""
     _, tp = plans(case)
-    ptr = tile_spmm.owner_arrays(tp, "cpu")["tile_ptr"]
-    assert ptr[0] == 0 and ptr[-1] == tp.num_chunks
-    assert bool((ptr[1:] > ptr[:-1]).all())  # every row tile has a chunk
     _, b = b_pair(tp.shape[1], 40, seed=12, bf16=False)
-    walk = owner_walk(tp, b).float()
+    min_dense = THRESHOLDS[threshold]
+    walk = owner_walk(tp, b, min_dense).float()
+    slabs = (-(-tp.num_k_tiles // 2), 2)
     scale = max(float(walk.abs().max()), 1.0)
     for plain in (tile_spmm.tile_spmm_plain(tp, b, "highest"),
+                  csr_vmem.staged_spmm_plain(tp, b, slabs[0], 256, "split"),
                   cres_spmm.cres_spmm_plain(tp, b, "highest", "block8"),
                   cres_spmm.cres_spmm_plain(tp, b, "split", "kloop")):
         assert float((plain - walk).abs().max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_owner_walk_matches_jax(bf16):
+    """The replay of the index against the JAX kernels in interpret mode,
+    on the same plan (the duplicates case), at a threshold of one nonzero
+    per k row, so that some of its tiles are dense."""
+    jp, tp = plans("duplicates")
+    jb, tb = b_pair(tp.shape[1], 72, seed=13, bf16=bf16)
+    walk = owner_walk(tp, tb, THRESHOLDS["one_per_k"]).float()
+    assert index_of(tp, THRESHOLDS["one_per_k"])["tile_dense"].any()
+    for ref in (jk3.spmm_tiles(jp, jb, mode="split", interpret=True),
+                jk4.spmm_staged(jp, jb, mode="split", interpret=True),
+                jk5.spmm_cres(jp, jb, mode="highest", interpret=True)):
+        close(walk, ref)
+
+
+@pytest.mark.parametrize("threshold", list(THRESHOLDS))
+@pytest.mark.parametrize("case", [*CASES, "empty"])
+def test_tile_index_lists_every_nonzero_once(case, threshold):
+    """Every real nonzero of the plan sits once in the index, in its own
+    (rt, kt) tile: dense tiles hold it in A (duplicates added), the rest in
+    its output row's list, in ascending k-tile; a tile is dense from the
+    threshold on."""
+    _, tp = plans(case)
+    tm, tk = tp.tile_m, tp.tile_k
+    ix = index_of(tp, THRESHOLDS[threshold])
+    real = tp.rows >= 0
+    c_idx, slot = np.nonzero(real)
+    grow = tp.rt[c_idx].astype(np.int64) * tm + tp.rows[c_idx, slot]
+    gk = tp.kt[c_idx].astype(np.int64) * tk + tp.cols[c_idx, slot]
+    val = tp.vals[c_idx, slot]
+    key = (grow // tm) * tp.num_k_tiles + gk // tk
+    tiles_key = ix["tile_rt"] * tp.num_k_tiles + ix["tile_kt"]
+    assert np.array_equal(tiles_key, np.unique(key))
+    assert np.array_equal(ix["tile_nnz"],
+                          np.unique(key, return_counts=True)[1])
+    assert np.array_equal(ix["tile_dense"],
+                          ix["tile_nnz"] >= THRESHOLDS[threshold])
+    for t, (c0, c1) in enumerate(zip(ix["tile_c0"], ix["tile_c1"])):
+        assert tp.rt[c0] == tp.rt[c1 - 1] == ix["tile_rt"][t]
+        assert tp.kt[c0] == tp.kt[c1 - 1] == ix["tile_kt"][t]
+    dense = np.isin(key, tiles_key[ix["tile_dense"]])
+    # sparse: each output row's nonzeros in walk order (ascending k-tile)
+    rows = np.repeat(np.arange(len(ix["row_ptr"]) - 1),
+                     np.diff(ix["row_ptr"]))
+    order = np.argsort(grow[~dense], kind="stable")
+    assert np.array_equal(rows, grow[~dense][order])
+    assert np.array_equal(ix["g_col"], gk[~dense][order])
+    assert np.array_equal(ix["g_val"], val[~dense][order])
+    for r in range(len(ix["row_ptr"]) - 1):
+        kts = ix["g_col"][ix["row_ptr"][r]:ix["row_ptr"][r + 1]] // tk
+        assert np.all(np.diff(kts) >= 0)
+    # dense: A tiles, rows padded to the warp's 16, duplicates added
+    dkeys = tiles_key[ix["tile_dense"]]
+    want = np.zeros((len(dkeys), -(-tm // 16) * 16, tk), np.float64)
+    np.add.at(want, (np.searchsorted(dkeys, key[dense]), grow[dense] % tm,
+                     gk[dense] % tk), val[dense])
+    assert np.allclose(ix["d_a"], want, rtol=1e-6, atol=0)
+    assert np.array_equal(ix["d_kt"], dkeys % tp.num_k_tiles)
+    assert np.array_equal(ix["d_ptr"], np.searchsorted(
+        dkeys // tp.num_k_tiles, np.arange(tp.num_row_tiles + 1)))
+    nnz_rt = np.bincount(grow // tm, minlength=tp.num_row_tiles)
+    assert sorted(ix["order"]) == list(range(tp.num_row_tiles))
+    assert np.all(np.diff(nnz_rt[ix["order"]]) <= 0)  # most work first
+
+
+@pytest.mark.parametrize("slabs", [(1, None), (2, 2), (3, 1)],
+                         ids=["one_slab", "two_kt_slabs", "one_kt_slabs"])
+@pytest.mark.parametrize("case", [*CASES, "empty"])
+def test_slab_layout_lists_the_plans_chunks(case, slabs):
+    """K4 reads K3's tile index on the card: its slab layout lists the
+    plan's chunks, each in its own (row tile, slab) range and each row
+    tile's in ascending k-tile, so an index built from the slab walk is
+    K3's, array for array."""
+    _, tp = plans(case)
+    num_slabs, kps = slabs[0], slabs[1] or tp.num_k_tiles
+    if num_slabs * kps < tp.num_k_tiles:
+        kps = -(-tp.num_k_tiles // num_slabs)
+    rt, kt, rows, cols, vals = slab_walk(tp, num_slabs, kps)
+    arrs = csr_vmem._slab_arrays(tp, num_slabs, kps)
+    for g, (c0, c1) in enumerate(zip(arrs["start"], arrs["end"])):
+        assert np.all(rt[c0:c1] == g // num_slabs)
+        assert np.all(np.minimum(kt[c0:c1] // kps, num_slabs - 1)
+                      == g % num_slabs)
+    real = (rows >= 0).any(axis=1)
+    for r in range(tp.num_row_tiles):
+        assert np.all(np.diff(kt[(rt == r) & real]) >= 0)
+
+    def chunks(*a):
+        return sorted(zip(*(np.asarray(x).reshape(len(a[0]), -1).tolist()
+                            for x in a)))
+
+    assert chunks(rt, kt, rows, cols, vals) == chunks(
+        tp.rt, tp.kt, tp.rows, tp.cols, tp.vals)
+    for threshold in THRESHOLDS.values():
+        walked = tile_spmm.build_tile_index(
+            rt, kt, rows, cols, vals, tp.num_row_tiles, tp.tile_m,
+            tp.tile_k, threshold)
+        ix = index_of(tp, threshold)
+        for name in chunk_cuda.INDEX:
+            assert np.array_equal(walked[name], ix[name]), name
+
+
+def test_dense_path_rules():
+    """The dense path: from DENSE_PER_TILE_K·tile_k nonzeros on (the
+    tests' default threshold), never at "split2" or when tile_k is not a
+    multiple of the routine's k-chunk."""
+    assert tile_spmm.dense_min(128, False) == THRESHOLDS["default"] == 1024
+    assert tile_spmm.dense_min(256, False) == 2048
+    assert tile_spmm.dense_min(128, True) == float("inf")
+    assert tile_spmm.dense_min(100, False) == float("inf")
+
+
+def test_routine_constants_match_source():
+    """The geometry the wrappers and the index assume is the one compiled
+    into csrc/chunk_spmm.cu."""
+    with open(chunk_cuda.SOURCE) as f:
+        text = f.read()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             text).group(1))
+
+    assert const("WARP_ROWS") == chunk_cuda.WARP_ROWS
+    assert const("MAX_ROWS") == chunk_cuda.MAX_ROWS
+    assert const("KC") == chunk_cuda.KC
+    assert (const("NARROW_TN"), const("WIDE_TN")) == chunk_cuda.COLUMN_TILES
+    for name in chunk_cuda.INDEX:  # the C interface's index arrays
+        assert re.search(rf"const (int|float)\* {name}[,;)]", text), name
+
+
+def test_bindings_match_the_c_interface():
+    """Each C entry's ctypes argument list is as long as its C parameter
+    list (a short one would pass the stream where the SM count goes)."""
+    from types import SimpleNamespace
+
+    with open(chunk_cuda.SOURCE) as f:
+        text = f.read()
+    names = ("tile_owner_spmm", "chunk_spmm_blocks_per_sm",
+             "chunk_spmm_error_string")
+    lib = SimpleNamespace(**{name: SimpleNamespace() for name in names})
+    chunk_cuda._bind(lib)
+    for name in names:
+        params = re.search(rf"\b{name}\(([^)]*)\)\s*{{", text).group(1)
+        assert len(getattr(lib, name).argtypes) == len(params.split(",")), \
+            name
+
+
+def test_tile_shapes_the_routine_runs_or_refuses():
+    """Row tiles of 1 to 128 rows run (ceil(tm / 16) warps; the index pads
+    dense A to whole warps; here a tile is dense from one nonzero per k
+    row); a larger one is refused before any launch, by name."""
+    for tm in (16, 64, 100, 128):
+        chunk_cuda.check_shape(tm)
+    r, c, v = triplets(m=300, k=700, density=0.03, seed=14)
+    for tm, tk, dense in ((64, 256, True), (100, 100, False)):
+        tp = tiles.build_tile_plan(r, c, v, (300, 700), tile_m=tm,
+                                   tile_k=tk, chunk=64)
+        _, b = b_pair(700, 24, seed=15, bf16=False)
+        min_dense = (tile_spmm.dense_min(tk, False)
+                     / tile_spmm.DENSE_PER_TILE_K)
+        ix = index_of(tp, min_dense)
+        assert ix["d_a"].shape[1:] == (-(-tm // 16) * 16, tk)
+        assert bool(ix["tile_dense"].any()) == dense
+        walk = owner_walk(tp, b, min_dense).float()
+        plain = tile_spmm.tile_spmm_plain(tp, b, "highest")
+        assert float((plain - walk).abs().max()) <= TOL * float(
+            plain.abs().max())
+    big = tiles.build_tile_plan(r, c, v, (300, 700), tile_m=256)
+    meta = torch.empty(700, 16, device="meta")
+    before = tile_spmm.spmm_tiles.launches
+    with pytest.raises(ValueError, match="tile_m=256"):
+        chunk_cuda.check_shape(256)
+    with pytest.raises(ValueError, match="tile_m=256"):
+        tile_spmm.spmm_tiles(big, meta)
+    assert tile_spmm.spmm_tiles.launches == before
+
+
+def test_residency_rules_do_not_read_the_kernel_column_tile(monkeypatch):
+    """The staging and C-resident rules plan with a 64-column tile of
+    their own: the routine's column tiles do not move a route."""
+    r, c, v = triplets(m=2048, k=2048, density=0.002, seed=11)
+    tp = tiles.build_tile_plan(r, c, v, (2048, 2048))
+    monkeypatch.setattr(chunk_cuda, "COLUMN_TILES", (128, 256))
+    assert csr_vmem.COLUMN_TILE == 64
+    assert csr_vmem.slab_geometry(tp, "cpu") == (3, 768)
+    assert cres_spmm.residency(tp, "cpu")["accumulator_bytes"] == 128 * 64 * 4
 
 
 def test_card_residency_rules():
@@ -305,6 +519,37 @@ def test_card_residency_rules():
     assert not cres_spmm.fits_card_out(1024, "cpu")  # 256 KiB accumulator
     with pytest.raises(ValueError):
         csr_vmem.smem_optin("meta")
+
+
+# the dispatcher's route on every data/ dir at B width 256 (the card's
+# cost constants), at the default plan-bytes cap and with no panel or pair
+# plan admitted (the tile family or the gather path): what the first port
+# of the tile kernels routed, which the tile-owner routine must not move
+ROUTES_ON_DATA = {
+    "large_15120": ("panel", "xla"), "large_20000": ("exact", "exact"),
+    "large_21074": ("panel", "xla"), "large_25605": ("panel", "cres"),
+    "medium_1484": ("exact", "exact"), "medium_2048": ("panel", "cres"),
+    "medium_2880": ("exact", "exact"), "medium_4000": ("panel", "cres"),
+    "medium_4096": ("panel", "xla"), "small_10x10": ("densify", "densify"),
+    "small_210": ("densify", "densify"),
+    "small_32x32": ("densify", "densify"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES_ON_DATA))
+def test_routes_on_data_dirs_are_pinned(name, monkeypatch):
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import convert
+    from tpuspmm_torch.kernels import dispatch, pair_spmm, panel_spmm
+
+    a = convert.load_sparse(data_dir(name), "csr")
+    b = torch.zeros(a.shape[1], 256)
+    default, capped = ROUTES_ON_DATA[name]
+    assert dispatch.route(a, b) == default
+    monkeypatch.setattr(panel_spmm, "PLAN_BYTES_CAP", 1)
+    monkeypatch.setattr(pair_spmm, "PLAN_BYTES_CAP", 1)
+    a = convert.load_sparse(data_dir(name), "csr")  # no cached geometry
+    assert dispatch.route(a, b) == capped
 
 
 def test_entry_refusals():

@@ -1,5 +1,8 @@
-"""Build, load and launch the chunk-owner CUDA kernels (csrc/chunk_spmm.cu):
-the tile-plan kernels K3 (tile), K4 (staged), K5a and K5b (C-resident).
+"""Build, load and launch the tile-owner CUDA routine (csrc/chunk_spmm.cu):
+the tile-plan kernels K3 (tile), K4 (staged), K5a and K5b (C-resident),
+one C entry (``tile_owner_spmm``) over one tile index
+(:func:`tpuspmm_torch.kernels.tile_spmm.build_tile_index`); each Python
+entry passes its own name, for messages.
 
 Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
 here runs when the module is imported.
@@ -8,32 +11,33 @@ here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from tpuspmm_torch.kernels import cuda_build
 
-# output columns per block of every kernel in the source (TN there)
-COLUMN_TILE = 64
-WALK_ENTRIES = ("tile_chunk_spmm", "cres_chunk_spmm",
-                "cres_kloop_chunk_spmm")
-STAGED_ENTRY = "staged_chunk_spmm"
+# the routine's geometry, compiled into the source (WARP_ROWS, MAX_ROWS,
+# NARROW_TN / WIDE_TN, KC there; a CPU test holds them equal): output rows
+# of a warp, of a block at most, the two column tiles, and the k-chunk a
+# dense tile is staged in, which tile_k must be a multiple of for a tile to
+# take the dense path
+WARP_ROWS = 16
+MAX_ROWS = 128
+COLUMN_TILES = (64, 128)
+KC = 32
+# the tile index's device arrays, in the order of the C interface
+INDEX = ("row_ptr", "g_col", "g_val", "d_ptr", "d_kt", "d_a", "order")
 
 
 def _bind(lib) -> None:
-    # (index arrays, kt, rows, cols, vals, b, b_bf16, out): one index array
-    # (tile_ptr) for a walk entry, two (start, end) for the staged entry
-    def ptrs(n_index):
-        return [ctypes.c_void_p] * (n_index + 5) + [ctypes.c_int,
-                                                    ctypes.c_void_p]
-
-    for name in WALK_ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = ptrs(1) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    fn = getattr(lib, STAGED_ENTRY)
-    fn.argtypes = ptrs(2) + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.tile_owner_spmm.argtypes = (
+        [ctypes.c_void_p] * (len(INDEX) + 1) + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.tile_owner_spmm.restype = ctypes.c_int
+    lib.chunk_spmm_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.chunk_spmm_blocks_per_sm.restype = ctypes.c_int
     lib.chunk_spmm_error_string.argtypes = [ctypes.c_int]
     lib.chunk_spmm_error_string.restype = ctypes.c_char_p
 
@@ -43,81 +47,70 @@ SOURCE = LIBRARY.source
 build = LIBRARY.build
 load = LIBRARY.load
 
-_INDEX = ("kt", "rows", "cols")
+
+def check_shape(tm: int) -> None:
+    """Refuse a plan the routine cannot run, before any launch: a block's
+    ceil(tm / WARP_ROWS) warps own the row tile, at most MAX_ROWS rows."""
+    if not 0 < tm <= MAX_ROWS:
+        raise ValueError(f"tile_m={tm}: the tile-owner routine runs row "
+                         f"tiles of 1 to {MAX_ROWS} rows")
 
 
-def _check(entry: str, arrs: dict, b: torch.Tensor, names, chunk: int):
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
+           tk: int, split2: bool) -> torch.Tensor:
+    """Launch the routine on the current stream for the entry named
+    ``entry``: C (m, n) f32 from the tile index ``idx`` (:data:`INDEX`, on
+    b's device), at the 2-term tier when ``split2``.  Raises on what the
+    kernel does not take and on a refused launch."""
+    check_shape(tm)
     if b.device.type != "cuda":
         raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
     if (b.dim() != 2 or b.dtype not in (torch.float32, torch.bfloat16)
             or not b.is_contiguous()):
         raise ValueError(f"{entry}: b must be a contiguous 2-D f32/bf16 "
                          f"tensor, got {tuple(b.shape)} {b.dtype}")
-    for name in names:
-        t = arrs[name]
-        want = torch.float32 if name == "vals" else torch.int32
+    for name in INDEX:
+        t = idx[name]
+        want = torch.float32 if name in ("g_val", "d_a") else torch.int32
         if t.device != b.device or not t.is_contiguous() or t.dtype != want:
             raise ValueError(f"{entry}: {name} must be a contiguous {want} "
                              f"tensor on {b.device}")
-    if arrs["rows"].shape[-1] != chunk or arrs["vals"].shape != \
-            arrs["rows"].shape or arrs["cols"].shape != arrs["rows"].shape:
-        raise ValueError(f"{entry}: chunk payloads must be (C, {chunk})")
-
-
-def _launch(entry: str, b: torch.Tensor, m: int, call) -> torch.Tensor:
+    num_tiles = idx["order"].numel()
+    n_dense = idx["d_kt"].numel()
+    if (num_tiles != -(-m // tm) or idx["row_ptr"].numel() != num_tiles * tm
+            + 1 or idx["d_ptr"].numel() != num_tiles + 1):
+        raise ValueError(f"{entry}: the index is not over {-(-m // tm)} row "
+                         f"tiles of {tm} rows")
+    if n_dense and (split2 or tk % KC or tuple(idx["d_a"].shape) != (
+            n_dense, -(-tm // WARP_ROWS) * WARP_ROWS, tk)):
+        raise ValueError(f"{entry}: dense tiles need tile_k % {KC} == 0, "
+                         "no split2, and (tiles, round_up(tm, 16), tk) A")
     lib = load()
+    k, n = b.shape
     # the ctypes launch goes to the current device: make it b's
     with torch.cuda.device(b.device):
-        out = torch.empty((m, b.shape[1]), dtype=torch.float32,
-                          device=b.device)
-        rc = call(getattr(lib, entry), out,
-                  torch.cuda.current_stream(b.device).cuda_stream)
+        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+        rc = lib.tile_owner_spmm(
+            *(idx[name].data_ptr() for name in INDEX), b.data_ptr(),
+            int(b.dtype == torch.bfloat16), out.data_ptr(), num_tiles, m, k,
+            n, tm, tk, n_dense, int(split2), _sm_count(b.device),
+            torch.cuda.current_stream(b.device).cuda_stream)
     cuda_build.check_launch(lib, "chunk_spmm_error_string", entry, rc)
     return out
 
 
-def owner_walk(entry: str, arrs: dict, b: torch.Tensor, m: int, tm: int,
-               tk: int, chunk: int, split2: bool) -> torch.Tensor:
-    """Launch a walk entry (K3, K5a, K5b) on the current stream: C (m, n)
-    f32 from the row-major chunk arrays in ``arrs`` (tile_ptr, row tile
-    r's chunks being [tile_ptr[r], tile_ptr[r+1]); kt, rows, cols, vals;
-    on b's device).  Raises on what the kernel does not take and on a
-    refused launch."""
-    if entry not in WALK_ENTRIES:
-        raise ValueError(f"unknown walk entry {entry!r}")
-    names = ("tile_ptr", *_INDEX, "vals")
-    _check(entry, arrs, b, names, chunk)
-    num_tiles = arrs["tile_ptr"].numel() - 1
-    if num_tiles != -(-m // tm):
-        raise ValueError(f"{entry}: tile_ptr has {num_tiles} row tiles "
-                         f"for m={m}, tm={tm}")
-
-    def call(fn, out, stream):
-        return fn(*(arrs[k].data_ptr() for k in names), b.data_ptr(),
-                  int(b.dtype == torch.bfloat16), out.data_ptr(), num_tiles,
-                  m, b.shape[1], tm, tk, chunk, int(split2), stream)
-
-    return _launch(entry, b, m, call)
-
-
-def staged(arrs: dict, b: torch.Tensor, m: int, tm: int, tk: int,
-           chunk: int, split2: bool, num_slabs: int,
-           slab_k: int) -> torch.Tensor:
-    """Launch the staged entry (K4) on the current stream: C (m, n) f32
-    from the slab layout in ``arrs`` (start, end per (row tile, slab);
-    kt, rows, cols, vals on b's device)."""
-    names = ("start", "end", *_INDEX, "vals")
-    _check(STAGED_ENTRY, arrs, b, names, chunk)
-    num_tiles = -(-m // tm)
-    if arrs["start"].numel() != num_tiles * num_slabs or slab_k % tk:
-        raise ValueError(f"{STAGED_ENTRY}: {arrs['start'].numel()} ranges "
-                         f"for {num_tiles} row tiles x {num_slabs} slabs, "
-                         f"slab_k={slab_k}")
-
-    def call(fn, out, stream):
-        return fn(*(arrs[k].data_ptr() for k in names), b.data_ptr(),
-                  int(b.dtype == torch.bfloat16), out.data_ptr(), num_tiles,
-                  m, b.shape[0], b.shape[1], tm, tk, chunk, int(split2),
-                  num_slabs, slab_k, stream)
-
-    return _launch(STAGED_ENTRY, b, m, call)
+def blocks_per_sm(b_bf16: bool, wide: bool, split2: bool) -> int:
+    """Blocks of one instantiation an SM holds at once (the occupancy
+    calculator on the current device), for a record."""
+    lib = load()
+    err = ctypes.c_int(0)
+    blocks = lib.chunk_spmm_blocks_per_sm(int(b_bf16), int(wide),
+                                          int(split2), ctypes.byref(err))
+    cuda_build.check_launch(lib, "chunk_spmm_error_string",
+                            "chunk_spmm_blocks_per_sm", err.value)
+    return blocks

@@ -11,19 +11,23 @@ fetched once:
 
 On the card (``csrc/chunk_spmm.cu``, ``cres_chunk_spmm`` and
 ``cres_kloop_chunk_spmm``) nothing carries over between blocks, so each
-output tile has one owner block that walks its row tile's chunks,
-accumulating in shared memory and storing once; C lives in device memory,
-written once.  Both k-major layouts list each row tile's chunks in
-ascending k tile, the row-major plan's order, so the owner walks the
-row-major plan (:func:`tile_spmm.owner_arrays`): K5a, K5b and K3 are one
-kernel on the card, with bit-identical outputs, under three entries and
-counters.  K5's own mechanism, one B panel shared by the chunks of a k
-tile, does not carry over yet (ROADMAP Queue 2).  The k-major layouts
-serve the plain versions, which walk them in the TPU's grid order.
+output tile has one owner block (the tile-owner routine of K3) that keeps
+its sums in registers and stores once; C lives in device memory, written
+once.  Both k-major layouts list each row tile's chunks in ascending k
+tile, the row-major plan's order, so the owner reads K3's tile index
+(:func:`tile_spmm.index_arrays`): K5a, K5b and K3 are one routine on the
+card, with bit-identical outputs, under three entries and counters.  K5's
+own mechanism, one B panel read serving every chunk of its k tile, holds
+at the scale of one owner: a dense tile's panel is staged once for all of
+its chunks.  Sharing a panel across row tiles (cluster multicast) is later
+work (ROADMAP Queue 2).  The k-major layouts serve the plain versions,
+which walk them in the TPU's grid order.
 
-**Admission on the card.**  What must be resident is one owner's
-accumulator, tile_m × TN × 4 bytes of shared memory (32 KiB at tile_m =
-128), not the whole C: every output size is admitted while that fits the
+**Admission on the card** (a planning rule, kept from the first port so
+that every route stays as it was).  It reads what must be resident as one
+owner's accumulator, tile_m × COLUMN_TILE × 4 bytes of shared memory (32
+KiB at tile_m = 128, COLUMN_TILE = 64), not the whole C: every output size
+is admitted while that fits the
 card's opt-in shared memory per block.  The JAX package's ``fits_vmem_out``
 / ``fits_vmem_loop`` (C plus panels, or C plus the whole payload, within
 8 / 13 MiB of v5e VMEM) admit far fewer matrices; the engine's records
@@ -36,10 +40,11 @@ import numpy as np
 import torch
 
 from tpuspmm_torch.formats.tiles import TilePlan, plan_from_container
-from tpuspmm_torch.kernels.chunk_cuda import COLUMN_TILE
-from tpuspmm_torch.kernels.csr_vmem import smem_optin
+from tpuspmm_torch.kernels import chunk_cuda
+from tpuspmm_torch.kernels.csr_vmem import COLUMN_TILE, smem_optin
 from tpuspmm_torch.kernels.tile_spmm import (check_mode, check_operand,
-                                             owner_arrays, walk_plain)
+                                             dense_min, index_arrays,
+                                             walk_plain)
 
 SCHEDULES = ("auto", "block8", "kloop")
 
@@ -171,13 +176,11 @@ def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
             "shared memory of a block; use spmm_tiles")
     if b.device.type == "cpu":
         return cres_spmm_plain(plan, b, mode, schedule)
-    from tpuspmm_torch.kernels import chunk_cuda
-
     entry = ("cres_chunk_spmm" if schedule == "block8"
              else "cres_kloop_chunk_spmm")
-    out = chunk_cuda.owner_walk(entry, owner_arrays(plan, b.device),
-                                b.contiguous(), plan.shape[0], plan.tile_m,
-                                plan.tile_k, plan.chunk, split2)
+    out = chunk_cuda.launch(
+        entry, index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
+        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
     counter = spmm_cres if schedule == "block8" else spmm_cres_kloop
     counter.launches += 1
     return out

@@ -5,17 +5,21 @@ when B is too large, one slab_k-row stripe of it per grid step) in VMEM and
 walks each row tile's chunks against it on a grid (row tile, slab): the
 output block is written at slab 0 and added to after.
 
-On the card (``csrc/chunk_spmm.cu``, ``staged_chunk_spmm``) this is shared-
-memory B staging, the class of the original CUDA K4: block (rt, y) owns
-output rows [rt·tm, +tm) and TN = 64 columns.  Per slab that holds a chunk
-of its row tile, it stages the (slab_k × TN) B stripe in shared memory,
-then runs that (rt, slab) chunk range from there, accumulating the (tm ×
-TN) output tile in shared memory; it stores once.
+On the card (``csrc/chunk_spmm.cu``, ``staged_chunk_spmm``) K4 is the
+tile-owner routine of K3 and K5 over K3's tile index: the (row tile, slab)
+ranges list each row tile's chunks in ascending k tile, as the plan does,
+so a walk of the slab layout would build the same index.  Only the k tiles
+that hold a dense tile of the row tile are staged, a 32-row chunk of the B
+panel at a time through a ``cp.async`` ring; there is no whole-slab
+stripe, and two blocks share an SM.
 
-**The staging rule on the card.**  A block's dynamic shared memory holds
-the f32 accumulator (tile_m × TN × 4 bytes) and the f32 B stripe (slab_k ×
-TN × 4 bytes).  slab_k is the largest multiple of tile_k that fits the
-card's opt-in shared memory per block
+**The staging rule** (the slab layout the entry builds and the dispatcher's
+staged route; a planning rule, kept from the first port of K4 so that
+every route stays as it was, and no longer the kernel's shared memory).
+It reads a block's shared memory as holding an f32 accumulator (tile_m ×
+COLUMN_TILE × 4 bytes) and an f32 B stripe (slab_k × COLUMN_TILE × 4
+bytes), COLUMN_TILE = 64.  slab_k is the largest multiple of tile_k that
+fits the card's opt-in shared memory per block
 (``torch.cuda.get_device_properties(dev).shared_memory_per_block_optin``)
 after the accumulator, capped at the padded K.  On an H100 (232,448 bytes
 opt-in) at tile_m = tile_k = 128: 232,448 − 32,768 = 199,680 bytes → 780
@@ -34,10 +38,16 @@ import numpy as np
 import torch
 
 from tpuspmm_torch.formats.tiles import TilePlan, plan_from_container
-from tpuspmm_torch.kernels.chunk_cuda import COLUMN_TILE
+from tpuspmm_torch.kernels import chunk_cuda
 from tpuspmm_torch.kernels.common import round_up
 from tpuspmm_torch.kernels.tile_spmm import (check_mode, check_operand,
+                                             dense_min, index_arrays,
                                              walk_plain)
+
+# the column tile the staging and C-resident rules plan with: the first
+# port's, and no longer the routine's (chunk_cuda.COLUMN_TILES), so that
+# no route moves with the kernel
+COLUMN_TILE = 64
 
 # opt-in shared memory per block of an H100 (NVIDIA's data sheet; what
 # cudaDevAttrMaxSharedMemoryPerBlockOptin reports there)
@@ -144,14 +154,10 @@ def spmm_staged(a_or_plan, b: torch.Tensor,
     num_slabs, slab_k = geom
     if b.device.type == "cpu":
         return staged_spmm_plain(plan, b, num_slabs, slab_k, mode)
-    from tpuspmm_torch.kernels import chunk_cuda
-
-    kps = slab_k // plan.tile_k
-    arrs = plan.device_arrays(b.device, ("slab", num_slabs, kps),
-                              lambda: _slab_arrays(plan, num_slabs, kps))
-    out = chunk_cuda.staged(arrs, b.contiguous(), plan.shape[0],
-                            plan.tile_m, plan.tile_k, plan.chunk, split2,
-                            num_slabs, slab_k)
+    out = chunk_cuda.launch(
+        "staged_chunk_spmm",
+        index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
+        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
     spmm_staged.launches += 1
     return out
 

@@ -7,11 +7,13 @@ densifies each chunk with two one-hot matmuls and stores its product into
 the output tile ``rt[c]`` on ``first[c]``, adding otherwise.
 
 On the card (``csrc/chunk_spmm.cu``, ``tile_chunk_spmm``) each output tile
-of tile_m rows × 64 columns has one owner block that walks its row tile's
-chunks in plan order (the plan is sorted by row tile, so they are one
-contiguous range) and gathers B rows directly: the one-hot matmuls exist
-only because Mosaic could not lower an in-kernel gather.  On a CPU tensor
-the entry runs the plain version, :func:`tile_spmm_plain`.
+of tile_m rows × 64 or 128 columns has one owner block, a warp for each
+16 rows, reading the plan through a tile index built once on the host
+(:func:`build_tile_index`): the dense (row tile, k-tile) tiles run on the
+tensor cores from a B panel staged once, the other nonzeros gather their B
+rows directly (the one-hot matmuls exist only because Mosaic could not
+lower an in-kernel gather).  K4 and K5 run the same routine.  On a CPU
+tensor the entry runs the plain version, :func:`tile_spmm_plain`.
 
 The plain versions of the whole tile family share :func:`walk_plain`: it
 runs the TPU's tier arithmetic term for term in float32 on whatever chunk
@@ -30,11 +32,19 @@ import numpy as np
 import torch
 
 from tpuspmm_torch.formats.tiles import TilePlan, plan_from_container
+from tpuspmm_torch.kernels import chunk_cuda
 from tpuspmm_torch.kernels.common import (full_f32_matmul, onehot_dot_split,
                                           pad_b, round_up, split_bf16)
 from tpuspmm_torch.kernels.panel_spmm import PLAIN_BATCH_BYTES, check_operand
 
 MODES = ("split", "split2", "highest")
+# a (row tile, k-tile) tile takes the tile-owner routine's dense path from
+# DENSE_PER_TILE_K·tile_k nonzeros on.  At tile_k nonzeros a staged B
+# panel moves no more bytes than the gathered rows, but a dense tile runs
+# tile_m·tile_k products a column on the tensor cores (3 or 6 a term pair)
+# where gathering runs one a nonzero: on the H100, tiles of 128-1023
+# nonzeros ran faster gathered (strip_sweep.py --chunk, PERF.md §6)
+DENSE_PER_TILE_K = 8.0
 
 
 def check_mode(mode: str) -> bool:
@@ -116,17 +126,95 @@ def tile_spmm_plain(plan: TilePlan, b: torch.Tensor,
     return out[:plan.shape[0]]
 
 
-def owner_arrays(plan: TilePlan, device) -> dict:
-    """Device tensors the owner-walk kernels (K3, K5a, K5b) read: the
-    plan's row-major chunk arrays, shared with the plain version, and
-    ``tile_ptr``, row tile r owning chunks [tile_ptr[r], tile_ptr[r+1])
-    (the plan is sorted by row tile).  Transferred once per plan and
-    device."""
-    arrs = dict(plan.device_arrays(device))
-    arrs.update(plan.device_arrays(device, "tile_ptr", lambda: {
-        "tile_ptr": np.searchsorted(
-            plan.rt, np.arange(plan.num_row_tiles + 1)).astype(np.int32)}))
-    return arrs
+def dense_min(tile_k: int, split2: bool) -> float:
+    """Nonzeros from which a (row tile, k-tile) tile takes the dense path:
+    DENSE_PER_TILE_K·tile_k; never at "split2" (the TPU's arithmetic per
+    nonzero) or when tile_k is not a multiple of the routine's k-chunk."""
+    if split2 or tile_k % chunk_cuda.KC:
+        return float("inf")
+    return DENSE_PER_TILE_K * tile_k
+
+
+def build_tile_index(rt, kt, rows, cols, vals, num_row_tiles: int,
+                     tile_m: int, tile_k: int, min_dense: float) -> dict:
+    """The tile-owner routine's index (numpy) of chunk arrays listed in
+    walk order (``rt``, ``kt`` per chunk; ``rows``, ``cols``, ``vals``
+    (C, E)), each row tile's chunks in ascending k-tile.
+
+    Padding slots (row -1) and chunks (rt -1) are dropped.  Each non-empty
+    (rt, kt) tile with at least ``min_dense`` nonzeros is dense: its A
+    tile, rows padded to a multiple of WARP_ROWS, is densified in f32 with
+    duplicates added in walk order (``d_a``; ``d_ptr`` per row tile,
+    ``d_kt``; in ascending kt).  The other nonzeros form a CSR over the
+    padded output rows (``row_ptr``, ``g_col`` = global k, ``g_val``),
+    each row's in walk order, so in ascending k-tile.  ``order`` lists the
+    row tiles by nonzeros, most first (stable).  For records and tests:
+    per tile ``tile_rt``, ``tile_kt``, ``tile_nnz``, ``tile_dense`` and its
+    chunk range [``tile_c0``, ``tile_c1``) in the walk."""
+    rt = np.asarray(rt).astype(np.int64)
+    kt = np.asarray(kt).astype(np.int64)
+    rows = np.asarray(rows)
+    keep = (rows >= 0) & (rt[:, None] >= 0)
+    ci, slot = np.nonzero(keep)  # walk order
+    r_loc = rows[ci, slot].astype(np.int64)
+    c_loc = np.asarray(cols)[ci, slot].astype(np.int64)
+    v = np.asarray(vals, dtype=np.float32)[ci, slot]
+    t_rt, t_kt = rt[ci], kt[ci]
+    nkt = int(kt.max()) + 1 if len(kt) else 1
+    key = t_rt * nkt + t_kt
+    ukey, inv, counts = np.unique(key, return_inverse=True,
+                                  return_counts=True)
+    dense_t = counts >= min_dense
+    is_dense = dense_t[inv]
+    m_pad = num_row_tiles * tile_m
+
+    sparse = ~is_dense
+    grow = t_rt[sparse] * tile_m + r_loc[sparse]
+    by_row = np.argsort(grow, kind="stable")
+    row_ptr = np.zeros(m_pad + 1, np.int64)
+    row_ptr[1:] = np.cumsum(np.bincount(grow, minlength=m_pad))
+
+    dkeys = ukey[dense_t]
+    d_rt = dkeys // nkt
+    tm16 = round_up(tile_m, chunk_cuda.WARP_ROWS)
+    d_a = np.zeros((len(dkeys), tm16, tile_k), np.float32)
+    np.add.at(d_a, (np.searchsorted(dkeys, key[is_dense]), r_loc[is_dense],
+                    c_loc[is_dense]), v[is_dense])
+
+    nnz_rt = np.bincount(t_rt, minlength=num_row_tiles)
+    c0 = np.full(len(ukey), len(rt), np.int64)
+    c1 = np.zeros(len(ukey), np.int64)
+    np.minimum.at(c0, inv, ci)
+    np.maximum.at(c1, inv, ci + 1)
+    return {
+        "row_ptr": row_ptr.astype(np.int32),
+        "g_col": (t_kt[sparse] * tile_k + c_loc[sparse])[by_row].astype(
+            np.int32),
+        "g_val": v[sparse][by_row],
+        "d_ptr": np.searchsorted(d_rt, np.arange(num_row_tiles + 1)).astype(
+            np.int32),
+        "d_kt": (dkeys % nkt).astype(np.int32),
+        "d_a": d_a,
+        "order": np.argsort(-nnz_rt, kind="stable").astype(np.int32),
+        "tile_rt": ukey // nkt, "tile_kt": ukey % nkt, "tile_nnz": counts,
+        "tile_dense": dense_t, "tile_c0": c0, "tile_c1": c1,
+    }
+
+
+def host_index(plan: TilePlan, min_dense: float) -> dict:
+    """The tile index of ``plan`` in its row-major walk, built once and
+    cached on the plan."""
+    return plan.derived(("tile_index", min_dense), lambda: build_tile_index(
+        plan.rt, plan.kt, plan.rows, plan.cols, plan.vals,
+        plan.num_row_tiles, plan.tile_m, plan.tile_k, min_dense))
+
+
+def index_arrays(plan: TilePlan, device, min_dense: float) -> dict:
+    """The tile index's device arrays (``chunk_cuda.INDEX``), transferred
+    once per plan, threshold and device: K3, K4, K5a and K5b share them."""
+    return plan.device_arrays(
+        device, ("tile_index", min_dense),
+        lambda: {k: host_index(plan, min_dense)[k] for k in chunk_cuda.INDEX})
 
 
 def spmm_tiles(plan: TilePlan, b: torch.Tensor, tile_n: int | None = None,
@@ -136,7 +224,7 @@ def spmm_tiles(plan: TilePlan, b: torch.Tensor, tile_n: int | None = None,
     on a CPU tensor it runs :func:`tile_spmm_plain` in column blocks of
     ``tile_n`` (JAX's column tile: min(round_up(N, 128), 512) by
     default), which leave the result unchanged.  ``tile_n`` has no effect
-    on the card: the kernel's column tile is fixed (64)."""
+    on the card: the routine picks its own column tile (64 or 128)."""
     split2 = check_mode(mode)
     check_operand(plan, b)
     n = int(b.shape[1])
@@ -146,12 +234,10 @@ def spmm_tiles(plan: TilePlan, b: torch.Tensor, tile_n: int | None = None,
     if b.device.type == "cpu":
         return torch.cat([tile_spmm_plain(plan, b[:, j:j + tile_n], mode)
                           for j in range(0, n, tile_n)], dim=1)
-    from tpuspmm_torch.kernels import chunk_cuda
-
-    out = chunk_cuda.owner_walk("tile_chunk_spmm",
-                                owner_arrays(plan, b.device), b.contiguous(),
-                                plan.shape[0], plan.tile_m, plan.tile_k,
-                                plan.chunk, split2)
+    out = chunk_cuda.launch(
+        "tile_chunk_spmm",
+        index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
+        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
     spmm_tiles.launches += 1
     return out
 
