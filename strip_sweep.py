@@ -6,6 +6,7 @@ Run from the repository root:
 
     python3 strip_sweep.py [--variants NAME,NAME,...]
     python3 strip_sweep.py --chunk [--variants NAME,NAME,...]
+    python3 strip_sweep.py --bsr [--variants NAME,...]
     python3 strip_sweep.py --profile-host
 
 Each variant is a copy of the source with some of its lines replaced
@@ -21,6 +22,17 @@ captured in a CUDA graph (device time), ``call_ms`` calls the wrapper
 the card line, one JSON line per variant with ptxas's registers and spills
 per kernel, and one JSON line per (case, B dtype) with each variant's ms.
 ``--profile-host`` instead profiles the host side of serving calls.
+
+``--bsr`` sweeps the block-streaming kernel K6 (csrc/bsr_spmm.cu):
+BSR_VARIANTS patch its source (column tile 64 or 128, ring depths, block
+rows in index order against heaviest first, B staged by plain loads
+against cp.async, and two controls, which are not held to the tolerance:
+three f32-B products instead of six, and 1 KB of a step's A planes copied
+instead of all) on BSR_CASES, chip_smoke.py's pruned weights.  Each
+variant runs through ``spmm_bsr_stream`` with the variant's library, is
+held against the plain version (K6_TOL, 2e-6·max|C|, chip_smoke.py's
+limit for K6, which the three-product control must miss with f32 B) and
+timed as above.
 
 ``--chunk`` sweeps the tile-owner routine (K3, K4, K5a, K5b) instead:
 CHUNK_VARIANTS patch its source (column tile, ring depth, launch order,
@@ -123,11 +135,34 @@ CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
                ("pruned_a", 512, ("f32", "bf16")),
                ("medium_4096", None, ("f32",)),
                ("medium_2048", None, ("f32",)))
+# name: [(text of bsr_spmm.cu, its replacement), ...]
+BSR_VARIANTS = {
+    "serving": [],
+    "tn128": [const("WARPGROUPS", 1, 2)],
+    "two_stages": [const("MAX_STAGES", 3, 2)],
+    "small_tiles_3_stages": [const("SMALL_STAGES", 2, 3)],
+    "small_tiles_4_stages": [const("SMALL_STAGES", 2, 4)],
+    "index_order": [("const int br = row_order[unit / subs];",
+                     "const int br = unit / subs;")],
+    "b_plain_loads": [("cudaStream_t s) {\n#define K6_ARGS",
+                       "cudaStream_t s) {\n  b_vec = 0;\n#define K6_ARGS")],
+    "products3": [const("F32_PRODUCTS", 6, 3)],
+    # control: each step copies 1 KB of its A planes, not 3-48 KB
+    "a_planes_1k": [("mbar_expect_tx(&bar[st], G::A_BYTES);",
+                     "mbar_expect_tx(&bar[st], 1024);"),
+                    ("G::A_BYTES, &bar[st]);", "1024, &bar[st]);")],
+}
+BSR_CONTROLS = ("products3", "a_planes_1k")
+# (weight, rows, cols, block, block density, seed, B width): chip_smoke.py's
+# pruned weights (a) and (b), B drawn as there
+BSR_CASES = (("a", 4096, 4096, (128, 128), 0.1, 0, 512),
+             ("b", 4096, 4096, (8, 128), 0.02, 1, 512))
 # (corpus dir, B width or None for the on-disk width, B dtypes)
 CASES = (("large_25605", 256, ("f32", "bf16")),
          ("large_21074", 256, ("f32", "bf16")),
          ("medium_4096", None, ("f32",)))
 PLAIN_TOL = 1e-4
+K6_TOL = 2e-6
 
 
 def build(name: str, patches: list, nvcc: str, flags, source: str,
@@ -165,13 +200,14 @@ def build(name: str, patches: list, nvcc: str, flags, source: str,
 def profile_host() -> int:
     """cProfile of the host work of ``tpuspmm_torch.spmm`` and of the
     panel and tile (K3) entry points on a prebuilt plan, large_25605 w256
-    with bf16 B (the device time is below the host time there)."""
+    with bf16 B (the device time is below the host time there), and of
+    ``spmm`` on BSR_CASES' weight (a) with bf16 B (K6)."""
     import cProfile
     import pstats
 
     import tpuspmm_torch
     from tpuspmm_torch.data import data_dir
-    from tpuspmm_torch.formats import convert, tiles
+    from tpuspmm_torch.formats import BSR, convert, tiles
     from tpuspmm_torch.kernels import panel_spmm, tile_spmm
 
     a = convert.load_sparse(data_dir("large_25605"), "csr")
@@ -181,11 +217,16 @@ def profile_host() -> int:
         a, 256, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP, device=b.device)
     plan = panel_spmm.panel_plan_from_geometry(a, geom)
     tplan = tiles.plan_from_container(a)
+    _, rows, cols, block, density, seed, width = BSR_CASES[0]
+    w = BSR.random_blocks(rows, cols, block, density, seed)
+    wb = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        (cols, width)) * 0.05).astype(np.float32)).cuda().to(torch.bfloat16)
     for name, call in (("spmm", lambda: tpuspmm_torch.spmm(a, b)),
                        ("spmm_panel", lambda: panel_spmm.spmm_panel(plan,
                                                                     b)),
                        ("spmm_tiles", lambda: tile_spmm.spmm_tiles(tplan,
-                                                                   b))):
+                                                                   b)),
+                       ("spmm_bsr", lambda: tpuspmm_torch.spmm(w, wb))):
         for _ in range(20):
             call()
         torch.cuda.synchronize()
@@ -303,6 +344,74 @@ def chunk_sweep(names: list) -> int:
     return 0
 
 
+def bsr_sweep(names: list) -> int:
+    """Build and time BSR_VARIANTS on BSR_CASES
+    (see the module docstring); prints one JSON line per build and one per
+    (case, B dtype)."""
+    from tpuspmm_torch.formats import BSR
+    from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm, cuda_build
+    from tpuspmm_torch.utils.compare import max_abs_err
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    out_dir = os.path.join(OUT, "bsr")
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(
+            lambda name: build(name, BSR_VARIANTS[name], cuda_build.nvcc(),
+                               cuda_build.NVCC_FLAGS, bsr_cuda.SOURCE,
+                               out_dir), names))
+    libs = {}
+    for rec in built:
+        print(json.dumps({k: v for k, v in rec.items()
+                          if k not in ("path", "group_rows")}), flush=True)
+        if "path" in rec:
+            libs[rec["name"]] = ctypes.CDLL(rec["path"])
+            bsr_cuda._bind(libs[rec["name"]])
+    dev = torch.device("cuda")
+    for wname, rows, cols, block, density, seed, width in BSR_CASES:
+        w = BSR.random_blocks(rows, cols, block, density, seed)
+        b32 = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+            (cols, width)) * 0.05).astype(np.float32)).to(dev)
+        counts = np.diff(w.indptr)
+        for tag in ("f32", "bf16"):
+            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
+
+            def run(name):
+                bsr_cuda.load = lambda: libs[name]
+                return bsr_spmm.spmm_bsr_stream(w, b)
+
+            want = bsr_spmm.bsr_spmm_plain(w, b)
+            scale = float(want.abs().max())
+            rec = {"case": wname, "b": tag, "width": width,
+                   "block": list(block), "nblocks": w.nblocks,
+                   "most_blocks_in_a_row": int(counts.max()),
+                   "empty_block_rows": int((counts == 0).sum()),
+                   "max_abs_c": scale, "err": {}, "ms": {}, "call_ms": {}}
+            for name in libs:
+                got = run(name)
+                torch.cuda.synchronize()
+                rec["err"][name] = max_abs_err(got, want) / scale
+            graphs = {}
+            for name in libs:
+                graphs[name] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[name]):
+                    run(name)
+            torch.cuda.synchronize()
+            times = {name: [] for name in libs}
+            calls = {name: [] for name in libs}
+            for name in list(libs) + list(libs)[::-1]:
+                times[name].append(cuda_time_ms(graphs[name].replay))
+                calls[name].append(cuda_time_ms(lambda: run(name)))
+            rec["ms"] = {k: min(v) for k, v in times.items()}
+            rec["call_ms"] = {k: min(v) for k, v in calls.items()}
+            rec["ok"] = (all(e <= K6_TOL for n, e in rec["err"].items()
+                             if n not in BSR_CONTROLS)
+                         and (tag == "bf16"
+                              or rec["err"].get("products3", 1.0) > K6_TOL))
+            print(json.dumps(rec), flush=True)
+            del graphs, want
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("strip_sweep: no CUDA device", file=sys.stderr)
@@ -319,6 +428,8 @@ def main() -> int:
                     help="comma-separated variant names (default: all)")
     ap.add_argument("--chunk", action="store_true",
                     help="sweep the tile-owner routine's CHUNK_VARIANTS")
+    ap.add_argument("--bsr", action="store_true",
+                    help="sweep the block-streaming kernel's BSR_VARIANTS")
     ap.add_argument("--profile-host", action="store_true",
                     help="only profile the host side of 200 serves of "
                          "large_25605 w256 with bf16 B (cProfile)")
@@ -329,8 +440,11 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    variants = CHUNK_VARIANTS if args.chunk else VARIANTS
+    variants = (BSR_VARIANTS if args.bsr else CHUNK_VARIANTS if args.chunk
+                else VARIANTS)
     names = (args.variants.split(",") if args.variants else list(variants))
+    if args.bsr:
+        return bsr_sweep(names)
     if args.chunk:
         return chunk_sweep(names)
     with ThreadPoolExecutor(len(names)) as pool:

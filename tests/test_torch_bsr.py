@@ -7,10 +7,23 @@
   ``spmm_bsr_stream`` in Pallas interpret mode, in f32 and bf16 B, within
   1e-5·max|C| (both are f32 sums, in another order), and the oracle at the
   gate.
+- The kernel's host prep: the term planes are ``split_bf16``'s terms of
+  the blocks in the kernel's swizzled layout and re-sum to the blocks; the
+  block-row order is a stable heaviest-first permutation.  A plain-torch
+  replay of the kernel's arithmetic (the ladder's bf16 products over the
+  planes and B's terms, each step's products summed apart, in the
+  kernel's order) matches JAX's ``spmm_bsr_stream`` in interpret mode
+  within K6_TOL (2e-6·max|C|, K6's limit on the card) and the oracle at
+  the gate; with f32 B the ladder cut to three products misses that limit.
 - The gather paths ``spmm_bsr_xla`` and ``spmm_ell_xla`` match JAX's.
 - The wrapper takes the plain version only for a CPU tensor; the CUDA
-  launcher refuses a CPU tensor and what the kernel does not take.
+  launcher refuses a CPU tensor and what the kernel does not take; its
+  constants and C argument types equal the source's.
 """
+
+import ctypes
+import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +37,7 @@ from tpuspmm.ops import xla as jxla
 from tpuspmm_torch.data import data_dir
 from tpuspmm_torch.formats import BSR, convert
 from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm
+from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
 from tpuspmm_torch.ops import oracle, xla
 from tpuspmm_torch.utils.compare import allclose
 
@@ -128,16 +142,179 @@ def test_stream_counts_only_kernel_launches():
 
 
 def test_cuda_launcher_refuses_what_the_kernel_does_not_take():
-    """Checked before anything is built: a CPU B, a wrong dtype, a block
-    shape outside bh % 8 / bw % 32."""
+    """Checked before anything is built: a CPU B; and the geometry the
+    planes are laid out for: 128-, 32- or 8-row sub-tiles (wgmma's N) and
+    64-column k-steps.  The ring and its shared memory are the source's:
+    a launch that does not fit is refused on the card."""
     a, _ = pair_of("b8x128_d40")
-    args = [torch.from_numpy(x) for x in (a.indptr, a.indices, a.blocks)]
+    args = [torch.from_numpy(x) for x in
+            (a.indptr, a.indices, bsr_spmm.block_row_order(a),
+             bsr_spmm.term_planes(a))]
     with pytest.raises(ValueError, match="CUDA"):
-        bsr_cuda.block_spmm(*args, torch.zeros(512, 8), 64)
-    assert bsr_cuda.row_tile(128) == 32 and bsr_cuda.row_tile(8) == 8
-    assert bsr_cuda.row_tile(24) == 8
-    assert bsr_cuda.smem_bytes(128) == (32 * 33 + 32 * 64) * 4 < 48 * 1024
+        bsr_cuda.block_spmm(*args, torch.zeros(512, 8), 64, a.block_size)
+    assert [bsr_cuda.row_tile(bh) for bh in (8, 16, 24, 32, 64, 128, 256,
+                                             512)] == [8, 8, 8, 32, 32, 128,
+                                                       128, 128]
+    assert bsr_cuda.planes_shape(96, 128, 128) == (96, 1, 2, 3, 128, 64)
+    assert bsr_cuda.planes_shape(4, 512, 256) == (4, 4, 4, 3, 128, 64)
     assert bsr_cuda.SOURCE.endswith("csrc/bsr_spmm.cu")
+
+
+def _stream_operand(case):
+    a, ja = pair_of(case)
+    if not bsr_spmm.mxu_friendly(a.block_size):
+        a, ja = bsr_spmm.pack_blocks(a), jk6.pack_blocks(ja)
+    return a, ja
+
+
+def _terms_of_planes(a):
+    """The planes unswizzled, as (term, block, bh, bw) float32."""
+    planes = bsr_spmm.swizzle128(bsr_spmm.term_planes(a))
+    nb, subs, kq, terms, rt, kc = planes.shape
+    bits = planes.transpose(3, 0, 1, 4, 2, 5).reshape(
+        terms, nb, subs * rt, kq * kc)
+    return torch.from_numpy(np.ascontiguousarray(bits)).view(
+        torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_term_planes_are_split_bf16_terms(case):
+    a, _ = _stream_operand(case)
+    planes = bsr_spmm.term_planes(a)
+    assert planes.dtype == np.int16
+    assert planes.shape == bsr_cuda.planes_shape(*a.blocks.shape)
+    blocks = torch.from_numpy(a.blocks)
+    terms = _terms_of_planes(a)
+    for got, want in zip(terms, split_bf16(blocks, 3)):
+        assert torch.equal(got, want.float())
+    resum = (terms[0].double() + terms[1].double() + terms[2].double())
+    err = (resum - blocks.double()).abs()
+    assert bool((err <= 2.0 ** -24 * blocks.double().abs()).all())
+    # the swizzle puts row r's 16-byte chunk c at chunk c ^ (r % 8), and
+    # is its own inverse
+    x = np.arange(16 * 64).reshape(16, 64)
+    sw = bsr_spmm.swizzle128(x)
+    for r, c in ((0, 0), (3, 2), (11, 7), (15, 5)):
+        d = c ^ (r % 8)
+        assert np.array_equal(sw[r, 8 * d:8 * d + 8], x[r, 8 * c:8 * c + 8])
+    assert np.array_equal(bsr_spmm.swizzle128(sw), x)
+
+
+@pytest.mark.parametrize("counts", [[3, 0, 1, 3, 2, 0, 3],
+                                    [0, 0, 0], [5], [1, 2, 3, 4]])
+def test_block_row_order_stable_heaviest_first(counts):
+    indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nb = int(indptr[-1])
+    a = BSR(indptr=indptr, indices=np.zeros(nb, np.int32),
+            blocks=np.zeros((nb, 8, 128), np.float32),
+            shape=(8 * len(counts), 128), block_size=(8, 128), nnz=nb * 1024)
+    order = bsr_spmm.block_row_order(a)
+    assert order.dtype == np.int32
+    assert sorted(order.tolist()) == list(range(len(counts)))
+    keyed = [(-counts[r], r) for r in order]
+    assert keyed == sorted(keyed)  # most blocks first, ties by index
+
+
+# K6's limit against its plain version on the card (chip_smoke.K6_TOL):
+# f32 sums in another order; the three-product ladder misses it
+K6_TOL = 2e-6
+LADDERS = {"f32": ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0)),
+           "bf16": ((0, 0), (1, 0), (2, 0)),
+           "f32_products3": ((0, 0), (0, 1), (1, 0))}
+
+
+def ladder_replay(a, b: torch.Tensor, ladder=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch: per stored block, per
+    K_CHUNK-deep step, the step's bf16 products (A term i from the planes,
+    B term j: with f32 B (0,0), (0,1), (1,0), (0,2), (1,1), (2,0); with
+    bf16 B the three A terms against B), 16 deep each, summed in f32 into
+    the step's own sum, which is then added into its block row's sums,
+    blocks in stored order."""
+    terms = _terms_of_planes(a)
+    bh, bw = a.block_size
+    b_pad = pad_b(b, round_up(a.shape[1], bw), int(b.shape[1]))
+    if b.dtype == torch.float32:
+        b_terms = [p.float() for p in split_bf16(b_pad, 3)]
+    else:
+        b_terms = [b_pad.float()]
+    if ladder is None:
+        ladder = LADDERS["f32" if b.dtype == torch.float32 else "bf16"]
+    rows = np.repeat(np.arange(a.num_block_rows), np.diff(a.indptr))
+    kt = torch.from_numpy(a.indices.astype(np.int64))
+    panels = [bt.reshape(-1, bw, bt.shape[1])[kt] for bt in b_terms]
+    out = torch.zeros(a.num_block_rows, bh, int(b.shape[1]))
+    steps = []
+    for s0 in range(0, bw, bsr_cuda.K_CHUNK):
+        part = torch.zeros(a.nblocks, bh, int(b.shape[1]))
+        for k0 in range(s0, s0 + bsr_cuda.K_CHUNK, 16):
+            for i, j in ladder:
+                part += torch.bmm(terms[i][:, :, k0:k0 + 16],
+                                  panels[j][:, k0:k0 + 16])
+        steps.append(part)
+    for blk in range(a.nblocks):
+        for part in steps:
+            out[rows[blk]] += part[blk]
+    return out.reshape(-1, int(b.shape[1]))[:a.shape[0]]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_ladder_replay_matches_jax_interpret(case, dtype):
+    a, ja = _stream_operand(case)
+    jb, tb = operand(a.shape[1], 200, 11, dtype)
+    ref = np.asarray(jk6.spmm_bsr_stream(ja, jb, interpret=True))
+    got = ladder_replay(a, tb)
+    assert got.shape == ref.shape
+    assert np.abs(got.numpy() - ref).max() <= K6_TOL * np.abs(ref).max()
+    assert allclose(got, oracle.spmm_oracle(a, tb.float().numpy()))
+
+
+@pytest.mark.parametrize("case", list(STREAM_CASES))
+def test_three_product_ladder_misses_k6_limit(case):
+    """The control of K6's limit: with f32 B, the ladder cut to its three
+    largest products, (0,0), (0,1) and (1,0), is further than K6_TOL from
+    JAX's result, and the six products are within it."""
+    a, ja = _stream_operand(case)
+    jb, tb = operand(a.shape[1], 200, 11, jnp.float32)
+    ref = np.asarray(jk6.spmm_bsr_stream(ja, jb, interpret=True))
+    got = ladder_replay(a, tb, LADDERS["f32_products3"])
+    assert np.abs(got.numpy() - ref).max() > K6_TOL * np.abs(ref).max()
+
+
+def _source_constants() -> dict:
+    with open(bsr_cuda.SOURCE) as f:
+        text = f.read()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    tiles = re.search(r"constexpr int ROW_TILES\[\] = \{([^}]*)\};", text)
+    consts["ROW_TILES"] = tuple(int(x) for x in tiles.group(1).split(","))
+    return consts
+
+
+def test_cuda_constants_equal_the_source():
+    src = _source_constants()
+    assert src["KC"] == bsr_cuda.K_CHUNK
+    assert src["TERMS"] == bsr_cuda.TERMS
+    assert src["ROW_TILES"] == bsr_cuda.ROW_TILES
+    assert src["COLS"] * src["WARPGROUPS"] == bsr_cuda.COLUMN_TILE
+    assert src["F32_PRODUCTS"] == len(LADDERS["f32"])  # ladder_replay's
+
+
+def test_cuda_argtypes_match_the_c_signature():
+    with open(bsr_cuda.SOURCE) as f:
+        text = f.read()
+    sig = re.search(rf"int {bsr_cuda.ENTRY}\(([^)]*)\)", text).group(1)
+    want = [ctypes.c_void_p if "void*" in p else ctypes.c_int
+            for p in (x.strip() for x in sig.split(","))]
+    assert all("void*" in p or p.startswith("int ")
+               for p in (x.strip() for x in sig.split(",")))
+    lib = types.SimpleNamespace(
+        **{bsr_cuda.ENTRY: types.SimpleNamespace(),
+           "bsr_spmm_error_string": types.SimpleNamespace()})
+    bsr_cuda._bind(lib)
+    assert getattr(lib, bsr_cuda.ENTRY).argtypes == want
+    assert getattr(lib, bsr_cuda.ENTRY).restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],

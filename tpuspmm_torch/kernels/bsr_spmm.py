@@ -9,10 +9,13 @@ empty block row gets one zero block (``_prep_bsr``).
 On the card (``csrc/bsr_spmm.cu``, ``bsr_block_spmm``) nothing carries
 over between blocks, so each (block row, row sub-tile, 64 columns) output
 tile has one owner block that walks the block row's stored blocks in
-stored order, stages block and B slices in shared memory, accumulates in
-registers with f32 FMAs and stores once; an empty block row is written as
-zeros.  The kernel reads the container's own indptr / indices / blocks;
-:func:`prep_bsr`'s arrays (equal to JAX's) serve the plain version.
+stored order on the tensor cores (wgmma), accumulates in registers and
+stores once; an empty block row is written as zeros.  The kernel reads the
+container's own indptr / indices, the blocks' bf16 term planes
+(:func:`term_planes`, built once per matrix in the kernel's shared-memory
+layout) and the block rows most stored blocks first
+(:func:`block_row_order`); :func:`prep_bsr`'s arrays (equal to JAX's)
+serve the plain version.
 
 Admission is the JAX package's, so that both packages route alike:
 :func:`mxu_friendly` (bh % 8 == 0 and bw % 128 == 0) takes the kernel;
@@ -29,7 +32,8 @@ import torch
 
 from tpuspmm_torch.formats.base import container_cache
 from tpuspmm_torch.formats.bsr import BSR
-from tpuspmm_torch.kernels.common import pad_b, round_up
+from tpuspmm_torch.kernels import bsr_cuda
+from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
 from tpuspmm_torch.ops import xla
 
 
@@ -58,6 +62,43 @@ def prep_bsr(a: BSR) -> dict:
         cache["bsr_prep"] = {"rt": rt, "kt": kt, "first": first,
                              "blocks": blocks}
     return cache["bsr_prep"]
+
+
+def swizzle128(tiles: np.ndarray) -> np.ndarray:
+    """The 128-byte swizzle of K-major bf16 tiles (last two axes: rows of
+    64 values, 128 bytes): row r's 16-byte chunk c goes to chunk c ^ (r % 8),
+    as the kernel's wgmma descriptor reads it.  Its own inverse."""
+    rows = tiles.shape[-2]
+    chunks = tiles.reshape(tiles.shape[:-1] + (8, 8))
+    dest = np.arange(8)[None, :] ^ (np.arange(rows) % 8)[:, None]
+    dest = dest.reshape((1,) * (tiles.ndim - 2) + (rows, 8, 1))
+    return np.take_along_axis(chunks, dest, axis=-2).reshape(tiles.shape)
+
+
+def term_planes(a: BSR) -> np.ndarray:
+    """The stored blocks' three bf16 terms (``split_bf16``'s, in order) as
+    K6 reads them, bf16 bits as int16, shape ``bsr_cuda.planes_shape``:
+    per (block, row sub-tile, 64-column k-step) the three sub-tile x 64
+    term planes, each swizzled (:func:`swizzle128`), so one bulk copy
+    stages a step.  ``spmm_bsr_stream`` builds them once per matrix and
+    device."""
+    nb, bh, bw = a.blocks.shape
+    _, subs, kq, terms, rt, kc = bsr_cuda.planes_shape(nb, bh, bw)
+    parts = split_bf16(torch.from_numpy(
+        np.ascontiguousarray(a.blocks, dtype=np.float32)), terms)
+    bits = np.stack([p.view(torch.int16).numpy() for p in parts])
+    # (term, block, sub, row, k-step, col) -> (block, sub, k-step, term, row,
+    # col)
+    bits = bits.reshape(terms, nb, subs, rt, kq, kc).transpose(
+        1, 2, 4, 0, 3, 5)
+    return np.ascontiguousarray(swizzle128(bits))
+
+
+def block_row_order(a: BSR) -> np.ndarray:
+    """The block rows, most stored blocks first (stable), empty rows last:
+    K6's launch order, so the owners of the heaviest rows start first."""
+    counts = np.diff(np.asarray(a.indptr, dtype=np.int64))
+    return np.argsort(-counts, kind="stable").astype(np.int32)
 
 
 def mxu_friendly(block_size) -> bool:
@@ -126,12 +167,11 @@ def spmm_bsr_stream(a: BSR, b: torch.Tensor) -> torch.Tensor:
     if b.device.type == "cpu":
         return bsr_spmm_plain(a, b)
     _check(a, b)
-    from tpuspmm_torch.kernels import bsr_cuda
-
-    indptr, indices, blocks = xla.cached_device(
-        a, "bsr_arrays", b.device, lambda: (a.indptr, a.indices, a.blocks))
-    out = bsr_cuda.block_spmm(indptr, indices, blocks, b.contiguous(),
-                              a.shape[0])
+    indptr, indices, order, planes = xla.cached_device(
+        a, "bsr_arrays", b.device,
+        lambda: (a.indptr, a.indices, block_row_order(a), term_planes(a)))
+    out = bsr_cuda.block_spmm(indptr, indices, order, planes, b.contiguous(),
+                              a.shape[0], a.block_size)
     spmm_bsr_stream.launches += 1
     return out
 
