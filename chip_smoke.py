@@ -95,6 +95,38 @@ Prints one JSON object per phase:
    ``--auto`` selected included.  The counts are read as the engine's
    launches: panel, pair, tile, staged, C-resident and K6 each rose.  The
    full records go to ``build/engine_records.jsonl``;
+6b. tuned: the ranking and geometry caches (TPUSPMM_TORCH_TUNE_CACHE and
+   TPUSPMM_TORCH_GEOM_CACHE, set for the whole script to files under
+   build/tune_cache, emptied before the first phase, so nothing is
+   written into the home directory and no earlier run's pins are read);
+   every launch count is zeroed; then on large_25605 w256 with f32 and
+   with bf16 B, medium_4096 at its on-disk w4096, and pruned weight (a)
+   as a BSR at w512 (the BSR engine: K6 against the others): the default
+   ``tpuspmm_torch.spmm`` serve is timed (before any tune pins a
+   geometry), ``autotune.tune`` runs (8 calls a window, 3 windows a
+   measurement), every ranked variant passes the gate when run again,
+   ``spmm(method="tuned")`` serves the first entry that is not
+   verified-only (its kernel number seen through ``engine.run_kernel``;
+   its output equal to that kernel's where two of its runs agree bit for
+   bit), and a second tune on a fresh container measures nothing and
+   returns the same ranking; one record per operand with the ranking, the
+   winner, and the tuned serve's time beside the default serve's and
+   cuSPARSE's; the tuned serve on medium_4096 must be at least 4x faster
+   than the default.  After every tune, the panel and pair entries of
+   every ranking carry their geometry and the resolvers return it for
+   that operand's B dtype on a fresh container of the same matrix (from
+   the disk cache).  The counts are read as the tuned window's launches.
+   Then ``python -m tpuspmm_torch.bench`` in a process of its own with
+   caches of its own, so its ``default_serve_ms`` is the model's pick and
+   its ranking its own (its last line re-emitted, held to ``correct``
+   and ``bf16_serving_correct``), ``cli.main`` with
+   ``--csr --tuned`` on large_25605 w256 (correct), a ``--trace`` run of
+   the panel kernel whose Chrome trace must name ``group_owner_kernel``,
+   and the API on the card: ``spmv`` with f32 and bf16 x, ``spmm_batched``
+   on a (3, K, 256) stack (one launch), and ``spmm_fn`` on large_25605
+   w256 with f32 and bf16 B, whose backward must launch a hand kernel on
+   A^T (25605 x 6300) and give a gradient in B's dtype at the gate against
+   the f64 oracle of A^T G;
 7. dispatch routes: ``tpuspmm_torch.spmm`` on small_32x32 (densify) and
    medium_1484 (compensated), each at the gate;
 8. entry points: counts zeroed again, the panel and pair entry points on
@@ -105,7 +137,8 @@ Prints one JSON object per phase:
    and pair kernels against their plain versions, with the gates of both
    printed, not required (plain f32 passes there only by luck);
 10. the kernels line (all seven kernels, with the least time the card
-   could take for the work, ``bound_ms``, and the library call's time;
+   could take for the work, ``bound_ms``, the library call's time, and
+   the tuned window's launches, ``tuned_launches``;
    every other number in it measured in this run: floors and plan work
    stay in their phase records), the card line, and the final ok line.
 
@@ -117,10 +150,12 @@ tpuspmm_torch package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -172,6 +207,9 @@ TILE_OPERANDS = ((HEADLINE, WIDTH, ("f32", "bf16"), 128, 128),
                  ("pruned_a", 77, ("f32", "bf16"), 128, 128),
                  ("pruned_a", 130, ("f32", "bf16"), 128, 128))
 PRUNED_DIR = os.path.join(REPO, "build", "pruned_llm_b128")
+# the autotuner's ranking and geometry caches, for every phase (nothing is
+# written into the home directory), emptied before the first
+CACHE_DIR = os.path.join(REPO, "build", "tune_cache")
 # engine runs: (cli arguments, what the run must show)
 ENGINE_RUNS = (
     ["--csr", "--coo", "-d", HEADLINE, "--width", str(WIDTH)],
@@ -333,12 +371,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    os.environ["TPUSPMM_TORCH_TUNE_CACHE"] = os.path.join(CACHE_DIR,
+                                                          "tune.json")
+    os.environ["TPUSPMM_TORCH_GEOM_CACHE"] = os.path.join(CACHE_DIR,
+                                                          "geom.json")
+    # no earlier run's rankings or pinned geometries: every phase before
+    # the tuned one serves the model's picks
+    shutil.rmtree(CACHE_DIR, ignore_errors=True)
     import tpuspmm_torch
     from tpuspmm_torch.data import data_dir
     from tpuspmm_torch.engine import report
     from tpuspmm_torch.formats import convert
     from tpuspmm_torch.config import Config
     from tpuspmm_torch import cli
+    from tpuspmm_torch.engine import autotune
+    from tpuspmm_torch.engine.registry import get_engine
     from tpuspmm_torch.formats import tiles
     from tpuspmm_torch.formats import BSR, COO, CSR
     from tpuspmm_torch.formats import io as fio
@@ -346,8 +393,9 @@ def main() -> int:
                                        cres_spmm, csr_vmem, cuda_build,
                                        dispatch, pair_spmm, panel_spmm,
                                        strip_cuda, tile_spmm)
-    from tpuspmm_torch.kernels.common import split_bf16
+    from tpuspmm_torch.kernels.common import round_up, split_bf16
     from tpuspmm_torch.ops import exact, oracle, vendor
+    from tpuspmm_torch.utils import profiling, timing
     from tpuspmm_torch.utils.compare import allclose, max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
 
@@ -1137,6 +1185,264 @@ def main() -> int:
     for name in ("panel", "pair", "tile", "staged", "cres", "bsr_stream"):
         check(engine_launches[name] > 0, f"{name} launched by the engine")
 
+    # ---- 6b. tuned: the autotuner, the bench, --tuned, --trace, the API --
+    t_tuned = time.perf_counter()
+    for counter in all_counters.values():
+        counter.launches = 0
+    cfg = Config()
+    med_a, med_dense = load("medium_4096")
+    med_b = torch.from_numpy(med_dense.data).to(dev)
+    tuned_ops = (
+        (f"{HEADLINE} w{WIDTH} f32", a, b32, refs[torch.float32]),
+        (f"{HEADLINE} w{WIDTH} bf16", a, b16, refs[torch.bfloat16]),
+        ("medium_4096 w4096", med_a, med_b,
+         oracle.spmm_scipy_oracle(med_a, med_dense.data)),
+        (f"pruned (a) BSR w{PRUNED_WIDTH}", weights["a"], pb32,
+         k6_refs["a", "f32"]))
+
+    @contextlib.contextmanager
+    def measurements():
+        """The autotuner's measurements in the block, counted by wrapping
+        its one timer."""
+        calls, orig = [], timing.serve_time_ms
+
+        def counted(*args, **kw):
+            calls.append(1)
+            return orig(*args, **kw)
+
+        timing.serve_time_ms = counted
+        try:
+            yield calls
+        finally:
+            timing.serve_time_ms = orig
+
+    def served_numbers(engine, call):
+        """``call()`` and the kernel numbers it ran through
+        ``engine.run_kernel``."""
+        seen, orig = [], engine.run_kernel
+
+        def spy(number, *args, **kw):
+            seen.append(number)
+            return orig(number, *args, **kw)
+
+        engine.run_kernel = spy
+        try:
+            return call(), seen
+        finally:
+            del engine.run_kernel
+
+    def resolved_record(family, container, n_pad, b_dtype) -> dict:
+        """The geometry the serving call resolves, in the ranking's terms."""
+        if family == "panel":
+            g = panel_spmm.resolve_panel_geometry(
+                container, n_pad, panel_strips=cfg.panel_strips,
+                plan_bytes_cap=cap, device=dev, b_dtype=b_dtype)
+            return {"tm": g.tm, "P": g.panel_strips, "tk": g.tk, "sm": g.sm,
+                    "order": g.order_kind}
+        g = pair_spmm.resolve_pair_geometry(container, n_pad,
+                                            plan_bytes_cap=cap, device=dev,
+                                            b_dtype=b_dtype)
+        return {"CH": g.chunk_strips, "sm": g.sm, "order": g.order_kind}
+
+    def serve_ms(fn, tb) -> float:
+        """A serve's ms as the tuner times a variant: the least of 3
+        medians of 20 back-to-back calls (host-bound serves spread)."""
+        return timing.serve_time_ms(fn, tb, 20, windows=3)
+
+    # what a user who does not tune is served: every operand before any
+    # tune (a tune pins geometries that the default serve then resolves)
+    defaults = {label: (dispatch.route(ta, tb),
+                        serve_ms(lambda bb: tpuspmm_torch.spmm(ta, bb), tb))
+                for label, ta, tb, _ in tuned_ops}
+    tuned_ms, rankings = {}, {}
+    for label, ta, tb, tref in tuned_ops:
+        eng = get_engine(ta.format_name)
+        default_route, default_ms = defaults[label]
+        t0 = time.perf_counter()
+        with measurements() as calls:
+            ranking = autotune.tune(ta, tb, iters=8, config=cfg)
+        tune_s = time.perf_counter() - t0
+        check(ranking, f"{label}: tune ranked a variant")
+        for r in ranking:
+            check(allclose(eng.run_kernel(r.number, ta, tb, cfg), tref),
+                  f"{label}: ranked {r.variant_name} passes the gate again")
+        first = next((r for r in ranking if not r.verified_only), None)
+        check(first is not None, f"{label}: an entry that is not "
+                                 "verified-only")
+        out, seen = served_numbers(eng, lambda: tpuspmm_torch.spmm(
+            ta, tb, method="tuned", config=cfg))
+        check(seen == [first.number], f"{label}: method='tuned' served "
+              f"{seen}, the first entry not verified-only is "
+              f"{first.number} ({first.variant_name})")
+        want = eng.run_kernel(first.number, ta, tb, cfg)
+        deterministic = torch.equal(want,
+                                    eng.run_kernel(first.number, ta, tb, cfg))
+        if deterministic:
+            check(torch.equal(out, want), f"{label}: the tuned serve equals "
+                                          f"kernel {first.number}'s output")
+        check(allclose(out, tref), f"{label}: tuned serve gate")
+        del out, want
+        rankings[label] = ranking
+        with measurements() as calls2:
+            again = autotune.tune(dataclasses.replace(ta), tb, iters=8,
+                                  config=cfg)
+        check(not calls2, f"{label}: a second tune measured {len(calls2)}")
+        check([(r.variant_name, r.ms) for r in again]
+              == [(r.variant_name, r.ms) for r in ranking],
+              f"{label}: a second tune returns the same ranking")
+        tuned_serve = serve_ms(lambda bb: tpuspmm_torch.spmm(
+            ta, bb, method="tuned", config=cfg), tb)
+        lib_ms = serve_ms(lambda bb: vendor.spmm_vendor(ta, bb), tb)
+        tuned_ms[label] = (tuned_serve, default_ms)
+        emit("tuned", operand=label, tune_s=tune_s, measurements=len(calls),
+             ranking=[{"name": r.variant_name, "number": r.number,
+                       "ms": r.ms, "verified_only": r.verified_only,
+                       **({"geometry": r.geom} if r.geom else {})}
+                      for r in ranking],
+             winner=first.variant_name,
+             fastest=min(ranking, key=lambda r: r.ms).variant_name,
+             winner_deterministic=deterministic,
+             tuned_serve_ms=tuned_serve, default_serve_ms=default_ms,
+             default_route=default_route, cusparse_ms=lib_ms,
+             gpu=gpu, power_limit=card.split(",")[-1].strip())
+    # every pin, read back after all the tunes: a later tune (another B
+    # dtype of the same matrix) must not have replaced an earlier one's
+    for label, ta, tb, _ in tuned_ops:
+        fresh = dataclasses.replace(ta)  # the same matrix, no cache
+        n_pad = round_up(int(tb.shape[1]), 128)
+        for r in rankings[label]:
+            family = autotune._GEOM_FAMILIES.get(r.variant_name)
+            if family is None:
+                continue
+            check(r.geom is not None and r.geom["family"] == family,
+                  f"{label}: {r.variant_name} carries its geometry")
+            got = resolved_record(family, fresh, n_pad, tb.dtype)
+            check(all(r.geom[key] == v for key, v in got.items()),
+                  f"{label}: {r.variant_name}'s pinned geometry {r.geom} "
+                  f"comes back from disk on a fresh container ({got})")
+        del fresh
+    tuned_serve, default_ms = tuned_ms["medium_4096 w4096"]
+    check(default_ms >= 4 * tuned_serve,
+          f"medium_4096 w4096: the tuned serve ({tuned_serve} ms) is at "
+          f"least 4x faster than the default serve ({default_ms} ms)")
+    tuned_window = {n: c.launches for n, c in all_counters.items()}
+    emit("tuned_launches", **tuned_window,
+         note="autotune.tune and spmm(method='tuned') on the four operands")
+    for name in ("panel", "pair", "tile", "cres", "bsr_stream"):
+        check(tuned_window[name] > 0, f"{name} launched by the tuner")
+
+    # the headline bench, in a process of its own with caches of its own:
+    # its default serve is the model's pick, not a geometry pinned above
+    t0 = time.perf_counter()
+    bench_cache = os.path.join(CACHE_DIR, "bench")
+    res = subprocess.run([sys.executable, "-m", "tpuspmm_torch.bench"],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env={
+                             **os.environ,
+                             "TPUSPMM_TORCH_TUNE_CACHE": os.path.join(
+                                 bench_cache, "tune.json"),
+                             "TPUSPMM_TORCH_GEOM_CACHE": os.path.join(
+                                 bench_cache, "geom.json")})
+    check(res.returncode == 0, f"bench exit status {res.returncode}: "
+                               f"{res.stderr[-3000:]}")
+    bench = json.loads(res.stdout.strip().splitlines()[-1])
+    check(bench["correct"] and bench["bf16_serving_correct"],
+          f"bench correct in f32 and bf16 ({bench})")
+    emit("bench", seconds=time.perf_counter() - t0, record=bench)
+
+    # --tuned through the CLI: the ranking is on disk, nothing is measured
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        status = cli.main(["--csr", "--tuned", "-d", HEADLINE, "--width",
+                           str(WIDTH)])
+    recs = [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+    check(status == 0 and len(recs) == 1 and recs[0]["tuned"] == "1"
+          and recs[0]["correct"] == "1", f"cli --tuned: {status} {recs}")
+    emit("cli_tuned", kernel=recs[0]["kernelName"],
+         kernel_ms=recs[0]["cudaKernelTimeMs"], ranking=recs[0]["ranking"])
+
+    # --trace: a panel run, whose Chrome trace names the kernel it launched
+    trace_dir = os.path.join(REPO, "build", "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    before = panel_spmm.spmm_panel.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        status = cli.main(["--csr", "--kernel", "7", "-d", HEADLINE,
+                           "--width", str(WIDTH), "--trace", trace_dir])
+    check(status == 0, f"cli --trace exit status {status}")
+    check(panel_spmm.spmm_panel.launches > before,
+          "the traced run launched the panel kernel")
+    trace_path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    symbols = sorted({e["name"] for e in events
+                      if e.get("cat") == "kernel"})
+    check(any("group_owner_kernel" in s_ for s_ in symbols),
+          f"the trace names the strip kernel's symbol ({symbols[:10]})")
+    emit("trace", path=os.path.relpath(trace_path, REPO),
+         bytes=os.path.getsize(trace_path), kernel_symbols=symbols)
+
+    # the API on the card: spmv (B rows of 4 and 2 bytes), spmm_batched
+    # (one launch for the stack), spmm_fn's backward on Aᵀ
+    def launched(call):
+        before = {n: c.launches for n, c in all_counters.items()}
+        result = call()
+        torch.cuda.synchronize()
+        return result, {n: c.launches - before[n]
+                        for n, c in all_counters.items()
+                        if c.launches > before[n]}
+
+    rng = np.random.default_rng(11)
+    m, k = a.shape
+    api = {}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        x = torch.from_numpy(rng.uniform(-1, 1, k).astype(np.float32)).to(
+            dev).to(dt)
+        y, ran = launched(lambda: tpuspmm_torch.spmv(a, x))
+        check(y.shape == (m,) and y.dtype == torch.float32,
+              f"spmv {dt}: shape {tuple(y.shape)}")
+        check(ran, f"spmv {dt}: a hand kernel served it")
+        gate = allclose(y, oracle.spmm_scipy_oracle(
+            a, x.float().cpu().numpy()[:, None])[:, 0])
+        check(gate, f"spmv {dt} gate vs f64 oracle")
+        api[f"spmv_{tag}"] = {"kernels": ran, "gate": gate, "ms": cuda_time_ms(
+            lambda: tpuspmm_torch.spmv(a, x))}
+    stack = torch.from_numpy(rng.uniform(-1, 1, (3, k, WIDTH)).astype(
+        np.float32)).to(dev)
+    y, ran = launched(lambda: tpuspmm_torch.spmm_batched(a, stack))
+    check(y.shape == (3, m, WIDTH), f"spmm_batched shape {tuple(y.shape)}")
+    check(sum(ran.values()) == 1, f"spmm_batched: one launch ({ran})")
+    ref = oracle.spmm_scipy_oracle(
+        a, stack.permute(1, 0, 2).reshape(k, -1).cpu().numpy())
+    gate = allclose(y, ref.reshape(m, 3, WIDTH).transpose(1, 0, 2))
+    check(gate, "spmm_batched gate vs f64 oracle")
+    api["spmm_batched"] = {"kernels": ran, "gate": gate, "ms": cuda_time_ms(
+        lambda: tpuspmm_torch.spmm_batched(a, stack))}
+    del y, stack
+    grad_c = torch.from_numpy(rng.uniform(-1, 1, (m, b32.shape[1])).astype(
+        np.float32)).to(dev)
+    grad_ref = (a.to_scipy().T.astype(np.float64)
+                @ grad_c.cpu().numpy().astype(np.float64)).astype(np.float32)
+    for bt in (b32, b16):
+        leaf = bt.clone().requires_grad_(True)
+        c = tpuspmm_torch.spmm_fn(a)(leaf)
+        check(c.dtype == torch.float32 and allclose(c, refs[bt.dtype]),
+              f"spmm_fn {bt.dtype} forward gate")
+        _, ran = launched(lambda: c.backward(grad_c))
+        check(ran, f"spmm_fn {bt.dtype}: the backward launched a hand "
+                   "kernel on A^T")
+        check(leaf.grad.dtype == bt.dtype, f"gradient in B's dtype "
+                                           f"({leaf.grad.dtype})")
+        gate = allclose(leaf.grad, grad_ref)
+        check(gate, f"spmm_fn {bt.dtype} gradient gate vs f64 oracle of "
+                    "A^T G")
+        api["spmm_fn_" + ("f32" if bt.dtype == torch.float32 else "bf16")] = {
+            "backward_kernels": ran, "gate": gate}
+        del c, leaf
+    emit("api", shape=[m, k], **api)
+    emit("tuned_phase", seconds=time.perf_counter() - t_tuned)
+
     # ---- 7. dispatch routes ----------------------------------------------
     for name, want in ROUTES.items():
         ra, rdense = load(name)
@@ -1231,7 +1537,8 @@ def main() -> int:
         line = {"name": entry, "route": "cuda",
                 "source": f"tpuspmm_torch/csrc/{source}",
                 "replaces": replaces, "launches": count,
-                "launches_window": window}
+                "launches_window": window,
+                "tuned_launches": tuned_window[name]}
         if name in launches:
             line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
@@ -1284,6 +1591,7 @@ def main() -> int:
         "launches": bsr_launches["bsr_stream"],
         "launches_window": "serving (tpuspmm_torch.spmm on BSR weights)",
         "engine_launches": engine_launches["bsr_stream"],
+        "tuned_launches": tuned_window["bsr_stream"],
         "kernel_phase_launches": bsr_window,
         "max_abs_err": max(r[t]["max_abs_err"] for r in k6_stats.values()
                            for t in ("f32", "bf16")),

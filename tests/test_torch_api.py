@@ -55,7 +55,9 @@ def test_import_loads_neither_jax_nor_ml_dtypes():
             "tpuspmm_torch.engine.registry, tpuspmm_torch.engine.runner,"
             "tpuspmm_torch.engine.select, tpuspmm_torch.kernels.bsr_spmm,"
             "tpuspmm_torch.kernels.bsr_cuda, tpuspmm_torch.formats.convert,"
-            "tpuspmm_torch.cli;"
+            "tpuspmm_torch.cli, tpuspmm_torch.bench,"
+            "tpuspmm_torch.engine.autotune, tpuspmm_torch.utils.profiling,"
+            "tpuspmm_torch.utils.disk_cache, tpuspmm_torch.utils.timing;"
             "bad = [m for m in ('jax', 'ml_dtypes', 'tpuspmm') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -144,7 +146,7 @@ def test_compensated_matrix_raises():
     """Values beyond the 2e4 cut-off: the dispatcher serves the
     compensated path (float64 accumulation here, the JAX package's
     compensated f32 there), equal to both the JAX path and the oracle;
-    only the autotuned method still raises."""
+    the autotuned method serves a winner that passes the gate there."""
     a_j, a_t = synthetic(m=200, k=300, density=0.02, seed=6, scale=1e5)
     assert jexact.needs_compensated(a_j) and jexact.exact_admissible(a_j)
     assert exact.needs_compensated(a_t) and exact.exact_admissible(a_t)
@@ -159,24 +161,33 @@ def test_compensated_matrix_raises():
         # f64 accumulation rounds once, to f32
         assert np.abs(got.numpy() - f64).max() <= 2 ** -23 * np.abs(f64).max()
         assert allclose(got, ref) and allclose(ref, f64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method="tuned")
+    tuned = tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method="tuned")
+    assert allclose(tuned, f64) and allclose(tuned, ref)
 
 
 @pytest.mark.parametrize("method", ["xla", "exact", "densify", "tuned"])
 def test_methods_not_yet_ported_raise(method):
-    """Every method of the JAX package's API: "tuned" still raises naming
-    ROADMAP; "xla", "exact" and "densify" serve, equal to the JAX
-    package's spmm_csr_xla / spmm_exact / spmm_densify_cached within f32
-    summation order (1e-5·max|C|) and to the oracle at the gate.  An
-    unknown method raises ValueError."""
+    """Every method of the JAX package's API serves: "xla", "exact" and
+    "densify" equal to the JAX package's spmm_csr_xla / spmm_exact /
+    spmm_densify_cached within f32 summation order (1e-5·max|C|) and to
+    the oracle at the gate; "tuned" serves the first ranked entry that is
+    not verified-only, at the gate.  An unknown method raises
+    ValueError."""
     a_j, a_t = synthetic(m=50, k=60, density=0.1)
     b = np.random.default_rng(10).uniform(-1, 1, (60, 8)).astype(np.float32)
     with pytest.raises(ValueError):
         tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method="nope")
     if method == "tuned":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method=method)
+        from tpuspmm_torch.engine import autotune
+        from tpuspmm_torch.engine.registry import get_engine
+
+        got = tpuspmm_torch.spmm(a_t, torch.from_numpy(b), method=method)
+        assert allclose(got, oracle.spmm_scipy_oracle(a_t, b))
+        ranking = autotune.tune(a_t, torch.from_numpy(b))  # its cache
+        first = next(r for r in ranking if not r.verified_only)
+        want = get_engine("csr").run_kernel(first.number, a_t,
+                                            torch.from_numpy(b))
+        assert torch.equal(got, want)
         return
     jax_fn = {"xla": jxla.spmm_csr_xla, "exact": jexact.spmm_exact,
               "densify": jxla.spmm_densify_cached}[method]

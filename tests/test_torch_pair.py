@@ -78,7 +78,7 @@ def test_pair_search_matches(bf16):
                                     True, th)
         for ch in (None, 16):
             ref, _ = jq._pair_search(*jin, None, 4 * 1024 * 1024, ch)
-            got = tq._pair_search(*tin, 4 * 1024 * 1024, ch)
+            got, _ = tq._pair_search(*tin, 4 * 1024 * 1024, ch)
             # JAX: (cost, perm, plan_bytes, sm, ch, tile_n, order_kind)
             assert got[2:] == ref[2:5] + ref[6:]
             assert got[0] == pytest.approx(ref[0], rel=1e-12)

@@ -20,13 +20,22 @@ is served by it::
     W = tpuspmm_torch.BSR.random_blocks(4096, 4096, (128, 128), 0.1)
     C = tpuspmm_torch.spmm(W, B)
 
+``spmm(A, B, method="tuned")`` measures every admissible kernel once per
+(matrix, width, B dtype) and serves the fastest that passes the gate;
+``spmv``, ``spmm_batched`` (a stack of B in one launch), ``spmm_transpose``
+and ``spmm_fn`` (a differentiable ``B -> A @ B``) complete the API.
+
 The engines: ``python -m tpuspmm_torch.cli --csr --coo --bsr --ell -d DIR``,
-or ``--auto`` to run the format the selection picks.
+``--auto`` to run the format the selection picks, ``--tuned`` for the
+autotuned winner; the headline: ``python -m tpuspmm_torch.bench``.
 """
 
 from tpuspmm_torch.config import Config, default_config
 from tpuspmm_torch.formats import BSR, CSC, CSR, COO, ELL, DenseMatrix
-from tpuspmm_torch.ops.api import spmm
+from tpuspmm_torch.ops.api import (spmm, spmv, spmm_batched, spmm_transpose,
+                                   spmm_fn)
+from tpuspmm_torch.engine.registry import get_engine, FORMATS
 
 __all__ = ["Config", "default_config", "CSR", "CSC", "COO", "BSR", "ELL",
-           "DenseMatrix", "spmm"]
+           "DenseMatrix", "spmm", "spmv", "spmm_batched", "spmm_transpose",
+           "spmm_fn", "get_engine", "FORMATS"]

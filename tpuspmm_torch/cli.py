@@ -10,28 +10,29 @@ device the command exits non-zero and never moves to the CPU by itself.
 ``--auto`` runs the engine of the format that ``engine/select.py`` picks
 for the directory's matrix (read from its `.coo` or `.mtx`, else from the
 first of its `.csr`, `.bsr` and ELL files), and names the pick on stderr.
-Autotuning and tracing are not ported yet: their flags exit 2 naming
-ROADMAP.
+``--tuned`` autotunes each format (``engine/autotune.py``) and prints one
+record per format: the winner's number and name, its ranked time, the
+ranking, and ``correct`` from a fresh gate check of the winner; exit 1
+when nothing passes or the winner fails.  ``--trace DIR`` writes a
+``torch.profiler`` Chrome trace of the run into DIR
+(``utils/profiling.py``).
 
 Usage::
 
     python -m tpuspmm_torch.cli --csr --coo -d data/large_25605 --width 256
     python -m tpuspmm_torch.cli --bsr --ell -d data/medium_4096
     python -m tpuspmm_torch.cli --auto -d data/large_25605 --width 256
+    python -m tpuspmm_torch.cli --csr --tuned -d data/large_25605 --width 256
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
 import numpy as np
-
-_NOT_YET = {
-    "tuned": "the verified autotune (ROADMAP Queue 1 item 7)",
-    "trace": "profiler tracing (ROADMAP Queue 1)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,9 +70,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     p.add_argument("--tuned", action="store_true",
-                   help=f"not yet ported: {_NOT_YET['tuned']}")
+                   help="autotune: check and time every admissible "
+                        "variant, emit one record with the winner and the "
+                        "ranking")
     p.add_argument("--trace", type=str, default=None,
-                   help=f"not yet ported: {_NOT_YET['trace']}")
+                   help="write a torch.profiler Chrome trace of the run to "
+                        "this directory")
     return p
 
 
@@ -101,6 +105,32 @@ def _run_one_kernel(engine, number: int, a, b, config, device,
         **common)
 
 
+def _run_tuned(engine, a, b, config, device, repeats: int,
+               common: dict) -> dict:
+    """Autotune ``a`` on ``device`` and check the winner afresh."""
+    from tpuspmm_torch.engine import autotune, report
+    from tpuspmm_torch.ops import oracle
+    from tpuspmm_torch.utils.compare import allclose
+
+    b_dev = b.to(device).contiguous()
+    ranking = autotune.tune(a, b_dev, iters=max(4, repeats), config=config,
+                            verbose=True)
+    if not ranking:
+        return {}
+    win = ranking[0]
+    out = engine.run_kernel(win.number, a, b_dev, config)
+    ok = allclose(out, oracle.spmm_scipy_oracle(a, b.float().numpy()))
+    return report.make_record(
+        kernel_type=win.number, kernel_name=win.variant_name, correct=ok,
+        kernel_ms=win.ms,
+        extra={"tuned": "1", "ranking": [
+            {"kernel": r.variant_name, "number": r.number, "ms": r.ms,
+             **({"verifiedOnly": "1"} if r.verified_only else {}),
+             **({"geometry": r.geom} if r.geom else {})}
+            for r in ranking]},
+        **common)
+
+
 def _probe(data: str):
     """The matrix ``--auto`` selects for: from the `.coo` or `.mtx` as the
     JAX package's CLI reads it, else from the first of `.csr`, `.bsr` and
@@ -117,11 +147,6 @@ def _probe(data: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    asked = [f for f in ("tuned", "trace") if getattr(args, f)]
-    if asked:
-        print(f"--{asked[0]} is not yet ported to tpuspmm_torch: "
-              f"{_NOT_YET[asked[0]]}", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -181,37 +206,55 @@ def main(argv=None) -> int:
         return rec
 
     out_stream = open(args.out, "a") if args.out else None
+    device_name = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")
     status = 0
+    if args.trace:
+        from tpuspmm_torch.utils.profiling import trace
+
+        tracing = trace(args.trace)
+    else:
+        tracing = contextlib.nullcontext()
     try:
-        for fmt in fmts:
-            a = convert.load_sparse(data, fmt)
-            engine = get_engine(fmt)
-            if args.kernel is not None:
+        with tracing:
+            for fmt in fmts:
+                a = convert.load_sparse(data, fmt)
+                engine = get_engine(fmt)
                 common = dict(testcase=testcase, sparsity=a.sparsity,
                               fmt=fmt, nnz=a.nnz, shape=a.shape,
-                              n=b.shape[1],
-                              device=(torch.cuda.get_device_name(device)
-                                      if device.type == "cuda" else "cpu"))
-                rec = _run_one_kernel(engine, args.kernel, a, b, config,
-                                      device, args.repeats, common)
+                              n=b.shape[1], device=device_name)
+                if args.tuned:
+                    rec = _run_tuned(engine, a, b, config, device,
+                                     args.repeats, common)
+                    if not rec:
+                        print(f"# {fmt}: no variant passed tuning",
+                              file=sys.stderr)
+                        status = 1
+                        continue
+                elif args.kernel is not None:
+                    rec = _run_one_kernel(engine, args.kernel, a, b, config,
+                                          device, args.repeats, common)
+                else:
+                    records = run_engine(
+                        engine, a, b, testcase=testcase, config=config,
+                        skip_seq=args.skip_seq,
+                        run_vendor=not args.no_vendor,
+                        repeats=args.repeats, emit=False, device=device)
+                    for rec in records:
+                        report.emit(provenance(rec),
+                                    out_stream or sys.stdout)
+                    if any(rec.get("correct") == "0"
+                           and rec.get("verifiedOnly") != "1"
+                           for rec in records):
+                        status = 1
+                    continue
                 report.emit(provenance(rec), out_stream or sys.stdout)
                 if rec["correct"] == "0":
                     status = 1
-                continue
-            records = run_engine(
-                engine, a, b, testcase=testcase, config=config,
-                skip_seq=args.skip_seq, run_vendor=not args.no_vendor,
-                repeats=args.repeats, emit=False, device=device)
-            for rec in records:
-                report.emit(provenance(rec), out_stream or sys.stdout)
-            if any(rec.get("correct") == "0"
-                   and rec.get("verifiedOnly") != "1" for rec in records):
-                status = 1
     finally:
         if out_stream:
             out_stream.close()
     return status
-
 
 if __name__ == "__main__":
     sys.exit(main())

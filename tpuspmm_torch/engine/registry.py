@@ -205,7 +205,7 @@ def _panel_ok(a, b, config):
     return panel_spmm.resolve_panel_geometry(
         a, round_up(int(b.shape[1]), 128), panel_strips=config.panel_strips,
         plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP,
-        device=b.device) is not None
+        device=b.device, b_dtype=b.dtype) is not None
 
 
 def _pair(a, b, config):
@@ -228,7 +228,7 @@ def _pair_ok(a, b, config):
     return pair_spmm.resolve_pair_geometry(
         a, round_up(int(b.shape[1]), 128),
         plan_bytes_cap=pair_spmm.PLAN_BYTES_CAP,
-        device=b.device) is not None
+        device=b.device, b_dtype=b.dtype) is not None
 
 
 def _compensated(a, b, config):

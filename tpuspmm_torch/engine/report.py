@@ -29,6 +29,18 @@ def hbm_gbps(device_name: str) -> float:
                        f"known: {sorted(HBM_GBPS)}") from None
 
 
+def detect_card(device="cpu") -> str:
+    """The name times and cached rankings are taken under (counterpart of
+    ``detect_chip``): the card's name for a CUDA device, "cpu" otherwise.
+    Never initialises CUDA for a CPU device."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
 def spmm_flops(nnz: int, n: int) -> int:
     """2 flops per nnz per output column (multiply-accumulate)."""
     return 2 * nnz * n

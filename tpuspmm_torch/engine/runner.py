@@ -30,13 +30,12 @@ import numpy as np
 import torch
 
 from tpuspmm_torch.engine import report
+from tpuspmm_torch.engine.autotune import _GEOM_FAMILIES, _geom_record
 from tpuspmm_torch.engine.registry import Engine
 from tpuspmm_torch.kernels.common import round_up
 from tpuspmm_torch.ops import oracle as oracle_mod
 from tpuspmm_torch.utils.compare import allclose
 
-_GEOM_FAMILIES = {"pallas_panel": "panel", "pallas_panel_split": "panel",
-                  "pallas_pair": "pair", "pallas_pair_split": "pair"}
 _RESIDENCY = {"pallas_staged_b": "staged", "pallas_c_resident": "cres",
               "pallas_c_resident_split2": "cres"}
 
@@ -60,18 +59,14 @@ def _provenance(name: str, a, b: torch.Tensor, config) -> dict:
     if family == "panel":
         g = panel_spmm.resolve_panel_geometry(
             a, n_pad, panel_strips=config.panel_strips,
-            plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP, device=b.device)
-        return {"geometry": {"family": "panel", "tm": int(g.tm),
-                             "P": int(g.panel_strips), "tk": int(g.tk),
-                             "sm": int(g.sm), "order": g.order_kind,
-                             "plan_mb": round(g.plan_bytes / 1e6, 2)}}
+            plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP, device=b.device,
+            b_dtype=b.dtype)
+        return {"geometry": _geom_record(family, g)}
     if family == "pair":
         g = pair_spmm.resolve_pair_geometry(
             a, n_pad, plan_bytes_cap=pair_spmm.PLAN_BYTES_CAP,
-            device=b.device)
-        return {"geometry": {"family": "pair", "CH": int(g.chunk_strips),
-                             "sm": int(g.sm), "order": g.order_kind,
-                             "plan_mb": round(g.plan_bytes / 1e6, 2)}}
+            device=b.device, b_dtype=b.dtype)
+        return {"geometry": _geom_record(family, g)}
     kind = _RESIDENCY.get(name)
     if kind is None:
         return {}

@@ -98,9 +98,9 @@ def _resolve(a, b: torch.Tensor, config=None):
     cap = panel_spmm.PLAN_BYTES_CAP
     geom = panel_spmm.resolve_panel_geometry(
         a, n_pad, panel_strips=config.panel_strips, plan_bytes_cap=cap,
-        device=b.device)
+        device=b.device, b_dtype=b.dtype)
     pgeom = pair_spmm.resolve_pair_geometry(a, n_pad, plan_bytes_cap=cap,
-                                            device=b.device)
+                                            device=b.device, b_dtype=b.dtype)
     if (geom is not None and pgeom is not None
             and pgeom.cost_us < geom.cost_us):
         geom = None  # pair's modelled serve time wins

@@ -38,10 +38,14 @@ from tpuspmm_torch.kernels.panel_spmm import (
     _device_cache,
     _occupied_strip_groups,
     _order_candidates,
+    _order_perm,
     _st_strip_counts_from_groups,
+    b_value_bytes,
     cached_group_index,
     check_operand,
     finish_panel_output,
+    geom_disk_load,
+    geom_disk_store,
     group_arrays,
     normalize_panel_mode,
     panel_matmul,
@@ -287,14 +291,16 @@ def _pair_search(m_pad, tm, nkt, strip_bytes, bw, step_us, strip_us,
                  perm_us, orders, order_kinds, groups, plan_bytes_cap,
                  chunk_strips):
     """The (CH, order) sweep of the pair cost model for a single
-    supertile.  Returns the winner as (cost, perm, plan_bytes, sm, ch,
-    order_kind) with a 3%-win hysteresis in iteration order (CH 64→8, so
-    ties keep the larger chunk), or None when nothing is admissible."""
+    supertile.  Returns (best, entries): every admissible candidate as
+    (cost, perm, plan_bytes, sm, ch, order_kind), and the winner among
+    them with a 3%-win hysteresis in iteration order (CH 64→8, so ties
+    keep the larger chunk), None when nothing is admissible."""
     ch_candidates = ((chunk_strips,) if chunk_strips is not None
                      else (64, 32, 16, 8))
     counts = [_st_strip_counts_from_groups(g, nkt, max(1, m_pad // tm))
               for g in groups]
     best = None
+    entries = []
     for ch in ch_candidates:
         for oi, (perm, _) in enumerate(orders):
             cnt, occ_st = counts[oi]
@@ -305,9 +311,11 @@ def _pair_search(m_pad, tm, nkt, strip_bytes, bw, step_us, strip_us,
                 continue
             cost = (steps * (step_us + ch * (strip_bytes / bw + strip_us))
                     + (perm_us if perm is not None else 0.0))
+            entries.append((cost, perm, plan_bytes, m_pad, ch,
+                            order_kinds[oi]))
             if best is None or cost < best[0] * 0.97:
-                best = (cost, perm, plan_bytes, m_pad, ch, order_kinds[oi])
-    return best
+                best = entries[-1]
+    return best, entries
 
 
 PairGeometry = dataclasses.make_dataclass(
@@ -347,11 +355,35 @@ def _pair_model_inputs(a, coo, rows, cols, m, k, n_pad, tm, tk,
             th["panel_strip_us"], perm_us, orders, order_kinds, groups)
 
 
+def _pair_key(n_pad, tm, tk, reorder_rows, plan_bytes_cap, chunk_strips,
+              th: dict, b_dtype=torch.float32) -> tuple:
+    """The container-cache key of a pair geometry: the resolver's
+    arguments, the device's cost constants and B's value bytes (see
+    ``panel_spmm._panel_key``)."""
+    return ("pair_geom", tm, tk, reorder_rows, n_pad, plan_bytes_cap,
+            chunk_strips, tuple(sorted(th.items())), b_value_bytes(b_dtype))
+
+
+def _pair_geometry(e) -> PairGeometry:
+    """A `_pair_search` entry as a PairGeometry."""
+    return PairGeometry(e[1], e[3], e[4], e[2], e[5], float(e[0]))
+
+
+def _pair_entry(geom) -> dict | None:
+    """A pair geometry as the disk cache stores it (the row order by its
+    kind), None for "inadmissible"."""
+    if geom is None:
+        return None
+    return {"sm": int(geom.sm), "ch": int(geom.chunk_strips),
+            "plan_bytes": int(geom.plan_bytes), "order": geom.order_kind,
+            "cost": None if geom.cost_us is None else float(geom.cost_us)}
+
+
 def resolve_pair_geometry(a, n_pad: int = 256, tm: int = 8, tk: int = 128,
                           reorder_rows: bool = True,
                           plan_bytes_cap: int | None = None,
                           chunk_strips: int | None = None,
-                          device="cpu"):
+                          device="cpu", b_dtype=torch.float32):
     """Pick (row order, chunk strips) for a single-supertile pair plan.
 
     The serve-time model per (CH, ordering):
@@ -361,13 +393,15 @@ def resolve_pair_geometry(a, n_pad: int = 256, tm: int = 8, tk: int = 128,
     where steps = Σ_pairs ceil(run/CH).  Pass ``chunk_strips`` to pin CH.
     The cost constants are ``dispatch.thresholds(device)``.  Returns a
     PairGeometry, or None when the plan exceeds ``plan_bytes_cap``.
-    Cached on the container."""
+    Cached on the container and in the geometry disk cache per B dtype,
+    as the panel resolver is (:func:`pin_pair_geometry` records the
+    measured winner)."""
     from tpuspmm_torch.kernels.dispatch import thresholds
     from tpuspmm_torch.ops.xla import coo_view
 
     th = thresholds(device)
-    key = ("pair_geom", tm, tk, reorder_rows, n_pad, plan_bytes_cap,
-           chunk_strips, tuple(sorted(th.items())))
+    key = _pair_key(n_pad, tm, tk, reorder_rows, plan_bytes_cap,
+                    chunk_strips, th, b_dtype)
     cache = container_cache(a)
     if key in cache:
         return cache[key]
@@ -375,15 +409,77 @@ def resolve_pair_geometry(a, n_pad: int = 256, tm: int = 8, tk: int = 128,
     m, k = coo.shape
     rows = np.asarray(coo.rows, np.int64)
     cols = np.asarray(coo.cols, np.int64)
-    best = _pair_search(
+    hit, entry = geom_disk_load(a, key, device)
+    if hit:
+        geom = None
+        if entry is not None:
+            perm = (None if entry["order"] == "natural"
+                    else _order_perm(rows, cols, m, cols // tk,
+                                     entry["order"]))
+            geom = PairGeometry(perm, int(entry["sm"]), int(entry["ch"]),
+                                int(entry["plan_bytes"]), entry["order"],
+                                entry.get("cost"))
+        cache[key] = geom
+        return geom
+    best, _ = _pair_search(
         *_pair_model_inputs(a, coo, rows, cols, m, k, n_pad, tm, tk,
                             reorder_rows, th),
         plan_bytes_cap, chunk_strips)
-    geom = (None if best is None
-            else PairGeometry(best[1], best[3], best[4], best[2], best[5],
-                              float(best[0])))
+    geom = None if best is None else _pair_geometry(best)
+    geom_disk_store(a, key, _pair_entry(geom), device)
     cache[key] = geom
     return geom
+
+
+def resolve_pair_geometry_candidates(a, n_pad: int = 256, k: int = 3,
+                                     tm: int = 8, tk: int = 128,
+                                     reorder_rows: bool = True,
+                                     plan_bytes_cap: int | None = None,
+                                     device="cpu"):
+    """The model's top-``k`` distinct pair geometries (by sm, CH, order),
+    cheapest modelled first with the resolver's hysteresis winner leading:
+    the pair counterpart of
+    ``panel_spmm.resolve_panel_geometry_candidates``."""
+    from tpuspmm_torch.kernels.dispatch import thresholds
+    from tpuspmm_torch.ops.xla import coo_view
+
+    coo = coo_view(a)
+    m, kk = coo.shape
+    rows = np.asarray(coo.rows, np.int64)
+    cols = np.asarray(coo.cols, np.int64)
+    best, entries = _pair_search(
+        *_pair_model_inputs(a, coo, rows, cols, m, kk, n_pad, tm, tk,
+                            reorder_rows, thresholds(device)),
+        plan_bytes_cap, None)
+    if best is None:
+        return []
+    seen, out = set(), []
+    for e in [best] + sorted(entries, key=lambda e: e[0]):
+        ident = (e[3], e[4], e[5])  # sm, CH, order
+        if ident not in seen:
+            seen.add(ident)
+            out.append(_pair_geometry(e))
+        if len(out) >= k:
+            break
+    return out
+
+
+def pin_pair_geometry(a, geom, n_pad: int = 256, tm: int = 8,
+                      tk: int = 128, reorder_rows: bool = True,
+                      plan_bytes_cap: int | None = None,
+                      chunk_strips: int | None = None,
+                      device="cpu", b_dtype=torch.float32,
+                      disk: bool = True) -> None:
+    """Record ``geom`` as the geometry :func:`resolve_pair_geometry`
+    returns for these arguments and B dtype (see
+    ``panel_spmm.pin_panel_geometry``)."""
+    from tpuspmm_torch.kernels.dispatch import thresholds
+
+    key = _pair_key(n_pad, tm, tk, reorder_rows, plan_bytes_cap,
+                    chunk_strips, thresholds(device), b_dtype)
+    container_cache(a)[key] = geom
+    if disk:
+        geom_disk_store(a, key, _pair_entry(geom), device)
 
 
 def plan_values_bf16_exact_cached(a, rows, cols, vals, k: int) -> bool:
@@ -477,7 +573,7 @@ def spmm_pair(a_or_plan, b: torch.Tensor, mode: str = "highest",
         geom = resolve_pair_geometry(a_or_plan, n_pad, tm=tm, tk=tk,
                                      plan_bytes_cap=PLAN_BYTES_CAP,
                                      chunk_strips=chunk_strips,
-                                     device=b.device)
+                                     device=b.device, b_dtype=b.dtype)
         if geom is None:
             raise ValueError(
                 f"no pair geometry admissible at width {n}: the plan "

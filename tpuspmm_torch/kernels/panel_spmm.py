@@ -37,6 +37,7 @@ import torch
 from tpuspmm_torch.formats.base import container_cache
 from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
 from tpuspmm_torch.kernels.strip_cuda import GROUP_ROWS
+from tpuspmm_torch.utils import disk_cache
 
 # admission cap on the stacked dense plan (re-read from device memory
 # every call)
@@ -291,7 +292,8 @@ def _geometry_search(rows, cols, m: int, k: int, tm, tk: int,
                      perm_us: float = 0.0,
                      reorder: bool = True,
                      prefer: int = 16,
-                     val_bytes: int = 4):
+                     val_bytes: int = 4,
+                     topk: int | None = None):
     """Joint (tm, tk, P, row order) search for a single-supertile plan,
     minimising the modelled serve time
 
@@ -303,7 +305,10 @@ def _geometry_search(rows, cols, m: int, k: int, tm, tk: int,
     first tk, P=prefer), falling back to the smallest admissible P.
     ``tm`` and ``tk`` may each be an int (pinned) or a tuple of
     candidates.  Returns (P, row_perm, sm, plan_bytes, tm, order_kind, tk,
-    cost_us) or None when no candidate passes admission."""
+    cost_us) or None when no candidate passes admission.  With ``topk``
+    set, returns a list of up to topk such tuples: the distinct geometries
+    (by P, sm, tm, order, tk), cheapest modelled first, with the winner
+    above leading, for callers that measure them."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     tms = (tm,) if isinstance(tm, int) else tuple(tm)
@@ -348,7 +353,7 @@ def _geometry_search(rows, cols, m: int, k: int, tm, tk: int,
                     entries.append((cost, P, perm, m_pad, plan_bytes, tm_c,
                                     order_kinds[oi], tk_c))
     if not entries:
-        return None
+        return [] if topk is not None else None
     naturals = [e for e in entries
                 if e[2] is None and e[5] == tms[0] and e[7] == tks[0]]
     base = next((e for e in naturals if e[1] == prefer), None)
@@ -357,8 +362,21 @@ def _geometry_search(rows, cols, m: int, k: int, tm, tk: int,
     best = min(entries, key=lambda e: e[0])
     if base is not None and best[0] >= base[0] * 0.97:
         best = base
-    return (best[1], best[2], best[3], best[4], best[5], best[6], best[7],
-            best[0])
+
+    def _tup(e):
+        return (e[1], e[2], e[3], e[4], e[5], e[6], e[7], e[0])
+
+    if topk is None:
+        return _tup(best)
+    seen, out = set(), []
+    for e in [best] + sorted(entries, key=lambda e: e[0]):
+        ident = (e[1], e[3], e[5], e[6], e[7])
+        if ident not in seen:
+            seen.add(ident)
+            out.append(_tup(e))
+        if len(out) >= topk:
+            break
+    return out
 
 
 def choose_panel_geometry(rows, cols, m: int, k: int, tm: int = 8,
@@ -555,12 +573,50 @@ def _panel_model_kwargs(th: dict, m: int, k: int, n_pad: int,
         else 4)
 
 
+def b_value_bytes(b_dtype) -> int:
+    """Bytes of one B value as the strip kernels read it: 2 for bf16, 4
+    for anything else (served as f32)."""
+    return 2 if b_dtype == torch.bfloat16 else 4
+
+
+def _panel_key(n_pad, tm, tk, panel_strips, reorder_rows, plan_bytes_cap,
+               th: dict, b_dtype=torch.float32) -> tuple:
+    """The container-cache key of a panel geometry: the resolver's
+    arguments (a searched tm / tk as its candidate tuple), the device's
+    cost constants and B's value bytes (the autotuner pins the geometry it
+    measured per B dtype; the JAX package's key has no dtype)."""
+    return ("panel_geom", TM_CANDIDATES if tm is None else tm,
+            TK_CANDIDATES if tk is None else tk, panel_strips, reorder_rows,
+            n_pad, plan_bytes_cap, tuple(sorted(th.items())),
+            b_value_bytes(b_dtype))
+
+
+def _panel_entry(geom) -> dict | None:
+    """A panel geometry as the disk cache stores it: the row order by its
+    kind (one sort rebuilds the permutation), None for "inadmissible"."""
+    if geom is None:
+        return None
+    return {"p": int(geom.panel_strips), "sm": int(geom.sm),
+            "plan_bytes": int(geom.plan_bytes), "tm": int(geom.tm),
+            "order": geom.order_kind, "tk": int(geom.tk),
+            "cost": None if geom.cost_us is None else float(geom.cost_us)}
+
+
+def _panel_from_entry(entry: dict, rows, cols, m: int) -> PanelGeometry:
+    tk = int(entry["tk"])  # the order's keys are at the stored tk's tiling
+    perm = (None if entry["order"] == "natural"
+            else _order_perm(rows, cols, m, cols // tk, entry["order"]))
+    return PanelGeometry(int(entry["p"]), perm, int(entry["sm"]),
+                         int(entry["plan_bytes"]), int(entry["tm"]),
+                         entry["order"], tk, entry.get("cost"))
+
+
 def resolve_panel_geometry(a, n_pad: int = 256, tm: int | None = None,
                            tk: int | None = None,
                            panel_strips: int | None = None,
                            reorder_rows: bool = True,
                            plan_bytes_cap: int | None = None,
-                           device="cpu"):
+                           device="cpu", b_dtype=torch.float32):
     """The panel geometry for a container (single supertile): a
     PanelGeometry, or None when no candidate passes ``plan_bytes_cap``.
 
@@ -568,25 +624,33 @@ def resolve_panel_geometry(a, n_pad: int = 256, tm: int | None = None,
     candidates only when it is inadmissible).  ``tm=None`` / ``tk=None``
     search the strip heights / k-tile widths; ints pin them.  The cost
     constants are ``dispatch.thresholds(device)``.  Cached on the
-    container."""
+    container and in the geometry disk cache (:func:`geom_disk_path`) per
+    B dtype (``b_dtype``, the serving operand's), so a geometry
+    :func:`pin_panel_geometry` recorded for that dtype is what every later
+    resolve returns, in this process and the next."""
     from tpuspmm_torch.kernels.dispatch import thresholds
     from tpuspmm_torch.ops.xla import coo_view
 
     th = thresholds(device)
-    tm_arg = TM_CANDIDATES if tm is None else tm
-    tk_arg = TK_CANDIDATES if tk is None else tk
-    key = ("panel_geom", tm_arg, tk_arg, panel_strips, reorder_rows, n_pad,
-           plan_bytes_cap, tuple(sorted(th.items())))
+    key = _panel_key(n_pad, tm, tk, panel_strips, reorder_rows,
+                     plan_bytes_cap, th, b_dtype)
     cache = container_cache(a)
     if key in cache:
         return cache[key]
 
     coo = coo_view(a)
     m, k = coo.shape
-    rows = np.asarray(coo.rows)
-    cols = np.asarray(coo.cols)
+    rows = np.asarray(coo.rows, np.int64)
+    cols = np.asarray(coo.cols, np.int64)
+    hit, entry = geom_disk_load(a, key, device)
+    if hit:
+        geom = None if entry is None else _panel_from_entry(entry, rows,
+                                                            cols, m)
+        cache[key] = geom
+        return geom
     kwargs = _panel_model_kwargs(th, m, k, n_pad, plan_bytes_cap,
                                  reorder_rows, rows, cols, coo.values)
+    tm_arg, tk_arg = key[1], key[2]
     if panel_strips is not None:
         g = _geometry_search(rows, cols, m, k, tm_arg, tk_arg,
                              (panel_strips,), prefer=panel_strips, **kwargs)
@@ -599,8 +663,101 @@ def resolve_panel_geometry(a, n_pad: int = 256, tm: int | None = None,
         g = _geometry_search(rows, cols, m, k, tm_arg, tk_arg,
                              STRIP_CANDIDATES, prefer=16, **kwargs)
     geom = None if g is None else PanelGeometry(*g)
+    geom_disk_store(a, key, _panel_entry(geom), device)
     cache[key] = geom
     return geom
+
+
+def resolve_panel_geometry_candidates(a, n_pad: int = 256, k: int = 3,
+                                      panel_strips: int | None = None,
+                                      reorder_rows: bool = True,
+                                      plan_bytes_cap: int | None = None,
+                                      device="cpu"):
+    """The model's top-``k`` distinct panel geometries, cheapest modelled
+    first with the plain search's pick leading, for the autotuner to
+    measure and pin the winner (:func:`pin_panel_geometry`).  Not cached:
+    a host search, cheap next to measuring one candidate."""
+    from tpuspmm_torch.kernels.dispatch import thresholds
+    from tpuspmm_torch.ops.xla import coo_view
+
+    th = thresholds(device)
+    coo = coo_view(a)
+    m, kk = coo.shape
+    rows = np.asarray(coo.rows, np.int64)
+    cols = np.asarray(coo.cols, np.int64)
+    kwargs = _panel_model_kwargs(th, m, kk, n_pad, plan_bytes_cap,
+                                 reorder_rows, rows, cols, coo.values)
+    strips = (STRIP_CANDIDATES if panel_strips is None
+              else (panel_strips,))
+    out = _geometry_search(rows, cols, m, kk, TM_CANDIDATES, TK_CANDIDATES,
+                           strips, prefer=16 if panel_strips is None
+                           else panel_strips, topk=k, **kwargs)
+    return [PanelGeometry(*g) for g in out]
+
+
+def pin_panel_geometry(a, geom, n_pad: int = 256, tm: int | None = None,
+                       tk: int | None = None,
+                       panel_strips: int | None = None,
+                       reorder_rows: bool = True,
+                       plan_bytes_cap: int | None = None,
+                       device="cpu", b_dtype=torch.float32,
+                       disk: bool = True) -> None:
+    """Record ``geom`` as the geometry :func:`resolve_panel_geometry`
+    returns for these arguments and B dtype: on the container, and with
+    ``disk`` in the geometry disk cache too, so a serving process that
+    starts later dispatches what the autotuner measured fastest.
+    ``disk=False`` pins the container only (a candidate while it is
+    measured)."""
+    from tpuspmm_torch.kernels.dispatch import thresholds
+
+    key = _panel_key(n_pad, tm, tk, panel_strips, reorder_rows,
+                     plan_bytes_cap, thresholds(device), b_dtype)
+    container_cache(a)[key] = geom
+    if disk:
+        geom_disk_store(a, key, _panel_entry(geom), device)
+
+
+# ---------------------------------------------------------------------------
+# geometry disk cache: the panel and pair searches are determined by the
+# matrix, the resolver's arguments and the device's constants, and a pinned
+# geometry was measured on one card, so both are stored per (matrix digest,
+# key, card) and a serving process that restarts skips the search.  On a
+# CPU device the default path is neither read nor written (a geometry timed
+# on the CPU means nothing on the card); TPUSPMM_TORCH_GEOM_CACHE names a
+# file that is, on any device.
+# ---------------------------------------------------------------------------
+
+def geom_disk_path(device="cpu") -> str | None:
+    """The geometry cache file for ``device``, or None when there is none
+    (a CPU device with TPUSPMM_TORCH_GEOM_CACHE unset)."""
+    return disk_cache.cache_path("TPUSPMM_TORCH_GEOM_CACHE", "geom.json",
+                                 device)
+
+
+def geom_disk_key(a, key: tuple, device) -> str:
+    """Disk key of a resolver key: the matrix digest, the key (the cost
+    constants included) and the card's name."""
+    from tpuspmm_torch.engine.report import detect_card
+
+    return (f"v1:{disk_cache.matrix_digest(a)}:{detect_card(device)}:"
+            + ":".join(map(str, key)))
+
+
+def geom_disk_load(a, key: tuple, device) -> tuple:
+    """(True, entry) when the cache holds the geometry of ``key`` for
+    ``a`` (entry None: none is admissible), else (False, None)."""
+    path = geom_disk_path(device)
+    if path is None:
+        return False, None
+    data = disk_cache.read(path)
+    dkey = geom_disk_key(a, key, device)
+    return (True, data[dkey]) if dkey in data else (False, None)
+
+
+def geom_disk_store(a, key: tuple, entry, device) -> None:
+    path = geom_disk_path(device)
+    if path is not None:
+        disk_cache.write(path, geom_disk_key(a, key, device), entry)
 
 
 def panel_plan_from_geometry(a, geom: PanelGeometry) -> PanelPlan:
@@ -776,7 +933,7 @@ def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
         geom = resolve_panel_geometry(a_or_plan, round_up(n, 128), tm=tm,
                                       tk=tk, panel_strips=panel_strips,
                                       plan_bytes_cap=PLAN_BYTES_CAP,
-                                      device=b.device)
+                                      device=b.device, b_dtype=b.dtype)
         if geom is None:
             raise ValueError(
                 f"no panel geometry admissible at width {n}: every "

@@ -1,6 +1,6 @@
-"""Public compute API: spmm.
+"""Public compute API: spmm, spmv, spmm_batched, spmm_transpose, spmm_fn.
 
-Counterpart of ``tpuspmm/ops/api.py::spmm`` with its method names:
+Counterpart of ``tpuspmm/ops/api.py`` with its method names:
 
 - "oracle"  — numpy float64 oracle (kernel 0)
 - "vendor"  — torch.sparse CSR @ dense, cuSPARSE on the card (kernel -1)
@@ -11,7 +11,9 @@ Counterpart of ``tpuspmm/ops/api.py::spmm`` with its method names:
 - "xla"     — gather + ``index_add_`` (``ops/xla.py``)
 - "exact"   — float64 accumulation, float32 result (``ops/exact.py``)
 - "densify" — densify once (cached), one f32 matmul per call
-- "tuned"   — not yet ported (raises)
+- "tuned"   — the verified autotune (``engine/autotune.py``): every
+  admissible variant measured once per (matrix, width, B dtype), the
+  fastest that passes the gate served
 """
 
 from __future__ import annotations
@@ -19,16 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_NOT_YET = {
-    "tuned": "the verified autotune (ROADMAP Queue 1 item 7)",
-}
 
-
-def _as_tensor(b, config) -> torch.Tensor:
+def _as_tensor(b, config=None) -> torch.Tensor:
     """A tensor keeps its device; a host array goes to ``config.device``,
     and a CUDA device that is not there raises."""
     if isinstance(b, torch.Tensor):
         return b
+    from tpuspmm_torch.config import default_config
+
+    config = config or default_config()
     device = torch.device(config.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -71,8 +72,86 @@ def spmm(a, b, method: str = "auto", config=None) -> torch.Tensor:
         from tpuspmm_torch.ops import exact
 
         return exact.spmm_exact(a, b)
-    if method in _NOT_YET:
-        raise NotImplementedError(
-            f"method {method!r} is not yet ported to tpuspmm_torch: "
-            f"{_NOT_YET[method]}")
+    if method == "tuned":
+        from tpuspmm_torch.engine.autotune import spmm_tuned
+
+        return spmm_tuned(a, b, config)
     raise ValueError(f"unknown method {method!r}")
+
+
+def spmv(a, x, method: str = "auto", config=None) -> torch.Tensor:
+    """Sparse @ vector: SpMM with N = 1.  A 1-D ``x`` gives a 1-D result;
+    a 2-D one is an ordinary SpMM."""
+    x = _as_tensor(x, config)
+    if x.dim() != 1:
+        return spmm(a, x, method=method, config=config)
+    return spmm(a, x[:, None], method=method, config=config)[:, 0]
+
+
+def spmm_batched(a, b, method: str = "auto", config=None) -> torch.Tensor:
+    """One sparse operand against a stack of dense ones: ``b`` is (..., K,
+    N), the result (..., M, N).  The batch is folded into the columns,
+    (..., K, N) → (K, B·N), so one SpMM (one kernel launch) serves the
+    whole stack and reads A's plan once, then unfolded."""
+    b = _as_tensor(b, config)
+    if b.dim() == 2:
+        return spmm(a, b, method=method, config=config)
+    if b.dim() < 2 or b.shape[-2] != a.shape[1]:
+        raise ValueError(f"b must be (..., K={a.shape[1]}, N); got "
+                         f"{tuple(b.shape)}")
+    batch, (k, n) = b.shape[:-2], b.shape[-2:]
+    flat = b.reshape(-1, k, n).movedim(0, 1).reshape(k, -1)
+    out = spmm(a, flat, method=method, config=config)  # (M, B·N)
+    m = out.shape[0]
+    return out.reshape(m, -1, n).movedim(1, 0).reshape(*batch, m, n)
+
+
+def transposed(a):
+    """Aᵀ as a row-sorted COO, cached on ``a``; its plans, device tensors
+    and tune ranking cache on it in turn, so a backward pays the
+    transpose's preparation once per matrix."""
+    from tpuspmm_torch.formats import COO
+    from tpuspmm_torch.formats.base import container_cache
+    from tpuspmm_torch.ops.xla import coo_view
+
+    cache = container_cache(a)
+    if "transposed" not in cache:
+        coo = coo_view(a)
+        cache["transposed"] = COO(
+            rows=np.asarray(coo.cols), cols=np.asarray(coo.rows),
+            values=np.asarray(coo.values),
+            shape=(coo.shape[1], coo.shape[0])).sort_by_row()
+    return cache["transposed"]
+
+
+def spmm_transpose(a, b, method: str = "auto", config=None) -> torch.Tensor:
+    """Aᵀ @ B (d/dB of A @ B is Aᵀ @ dC), through :func:`transposed`."""
+    return spmm(transposed(a), b, method=method, config=config)
+
+
+class _SpmmFunction(torch.autograd.Function):
+    """C = A @ B with dB = Aᵀ @ dC; A is frozen (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, b, a, method, config):
+        ctx.a, ctx.method, ctx.config = a, method, config
+        ctx.b_dtype = b.dtype
+        return spmm(a, b, method=method, config=config)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = spmm_transpose(ctx.a, grad.contiguous(), method=ctx.method,
+                           config=ctx.config)
+        return g.to(ctx.b_dtype), None, None, None
+
+
+def spmm_fn(a, method: str = "auto", config=None):
+    """A differentiable ``b -> A @ b`` over the sparse operand: the
+    forward is :func:`spmm` (float32 out), the backward
+    :func:`spmm_transpose` of the incoming gradient, in B's dtype.  A gets
+    no gradient (frozen sparse weights, a trainable dense operand)."""
+    def f(b):
+        return _SpmmFunction.apply(_as_tensor(b, config), a,
+                                   method, config)
+
+    return f

@@ -6,10 +6,17 @@ the per-call times.  Calls are not separated by a synchronise, so a call
 whose host work is shorter than the previous call's device work adds no
 idle time; one whose host work is longer shows that gap, which a serving
 caller pays as well.
+
+``serve_time_ms`` is the one timer the autotuner (``engine/autotune.py``)
+calls: ``cuda_time_ms`` of ``fn(b)`` on a CUDA tensor, so a host-bound
+entry point is ranked by what a serve costs, and the host clock's median
+on a CPU tensor; with ``windows`` > 1, the least of that many medians, so
+a burst of host noise in one window does not decide a ranking.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import numpy as np
@@ -30,3 +37,25 @@ def cuda_time_ms(fn: Callable, warmup: int = 3, iters: int = 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def serve_time_ms(fn: Callable, b: torch.Tensor, iters: int = 8,
+                  windows: int = 1) -> float:
+    """Median ms of one call ``fn(b)``: CUDA events over ``iters`` back to
+    back calls when ``b`` is on the card, the host clock (each call run to
+    its end) when it is on the CPU.  With ``windows`` > 1 the median is
+    taken in that many windows of ``iters`` calls and the least is
+    returned."""
+    if b.device.type == "cuda":
+        return min(cuda_time_ms(lambda: fn(b), warmup=1, iters=max(1, iters))
+                   for _ in range(max(1, windows)))
+    fn(b)
+    best = float("inf")
+    for _ in range(max(1, windows)):
+        times = []
+        for _ in range(max(1, iters)):
+            t0 = time.perf_counter()
+            fn(b)
+            times.append((time.perf_counter() - t0) * 1e3)
+        best = min(best, float(np.median(times)))
+    return best
