@@ -78,10 +78,20 @@ Prints one JSON object per phase:
    path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
    in f32 and bf16, each served by K6 and by no other kernel, at the gate;
    the 4 x 4 weight at 10% block density routes to densify (packing
-   refused, as in the JAX package), at the gate.  With the model's step
-   and strip costs unfitted, pair never prices below panel at the default
-   config (it ties), so the default serves panel; the pinned P prices
-   panel higher and the dispatcher serves pair;
+   refused, as in the JAX package), at the gate.  Under the cost
+   constants fitted on the H100 (``kernels/dispatch.py``) the default
+   config serves panel on every dir, so the pair kernel is served on
+   medium_2048 with the panel strip count pinned (``Config(panel_strips=
+   16)``), which prices panel above pair.  After the window, one
+   ``model_fit`` record per dir the default config serves by panel or
+   pair (the headline, the four corpus dirs and medium_4000, at their
+   widths): the panel and pair geometries the model resolves, each one's
+   modelled ``cost_us`` beside its device time, which one the model
+   serves, and the geometry the unfitted constants (step and strip 0,
+   the data sheet's bandwidth) served, with its device time from the same
+   run: data for the next refit and for the fit's effect, not a check.
+   The record ``main_path``'s ``hbm_roofline_frac`` is the least bytes
+   over the card's data-sheet rate;
 6. engine: every launch count zeroed, then ``tpuspmm_torch.cli.main``
    runs ``--csr --coo`` and ``--bsr --ell`` on large_25605 ``--width 256``
    in f32 and bf16 B, ``--csr`` on medium_2048 and medium_4096 and
@@ -136,9 +146,25 @@ Prints one JSON object per phase:
    the f64 oracle, required on the compensated ("exact") route; the panel
    and pair kernels against their plain versions, with the gates of both
    printed, not required (plain f32 passes there only by luck);
-10. the kernels line (all seven kernels, with the least time the card
-   could take for the work, ``bound_ms``, the library call's time, and
-   the tuned window's launches, ``tuned_launches``;
+10. parallel (``tpuspmm_torch.parallel``) in a one-rank NCCL group the
+   script opens itself (no launcher): every schedule (row-sharded, 2-D,
+   ring, k-shard) with every local (xla, tile, panel, pair) on
+   large_25605 w256 with f32 and bf16 B, in a launch window of its own:
+   each call at the gate against the f64 oracle, launching exactly its
+   local's kernel once (xla none), and the tile, panel and pair outputs
+   equal bit for bit to the single-card entry point on the plan the
+   one-rank shard plan equals; each combo's time beside that entry's.
+   Then ``make_train_state`` on pruned weight (a) as CSR with n = 512 and
+   three ``lsq_train_step``s: the loss falls, each step launches K3
+   twice, and the last step's dB is held to its plain version within
+   PLAIN_TOL·max|dB| (the update equal to B - lr·dB bit for bit).  Then
+   ``tpuspmm_torch.examples.distributed_serving`` under ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1`` on large_25605
+   w256 with the panel local: exit 0, all four schedules correct;
+11. the kernels line (all seven kernels, with the least time the card
+   could take for the work, ``bound_ms``, the library call's time, the
+   tuned window's launches, ``tuned_launches``, and the parallel
+   window's, ``parallel_launches``;
    every other number in it measured in this run: floors and plan work
    stay in their phase records), the card line, and the final ok line.
 
@@ -160,6 +186,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -168,6 +195,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = "large_25605"
 WIDTH = 256
 MAIN_CORPUS = ("large_15120", "large_21074", "medium_2048", "medium_4096")
+# the serving dir a pinned P (Config(panel_strips=16)) sends to pair
+PAIR_SERVED = "medium_2048"
+# the dir outside MAIN_CORPUS whose default serve is panel / pair: its
+# model_fit record (its values are extreme, so it is not held to the gate)
+FIT_EXTRA = "medium_4000"
 EXTREME_CORPUS = ("medium_1484", "medium_2880", "medium_4000", "large_20000")
 # the pruned-LLM weights of the K6 phases: (rows, cols, block, block
 # density, seed), and B as bench/pruned_llm.py draws it
@@ -270,13 +302,6 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -299,18 +324,6 @@ def gate_ratio(result, reference) -> float:
     ref = np.asarray(reference, dtype=np.float64)
     return float(np.max(np.abs(got - ref) / (1e-3 + 1e-2 * np.abs(ref)),
                         initial=0.0))
-
-
-def device_ms(fn) -> float:
-    """Device time of ``fn``'s kernels: ``fn`` captured in a CUDA graph and
-    replayed, so the wrapper's host work does not show."""
-    from tpuspmm_torch.utils.timing import cuda_time_ms
-
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    torch.cuda.synchronize()
-    return cuda_time_ms(graph.replay)
 
 
 def tensor_core_ops(path: str) -> tuple:
@@ -366,6 +379,137 @@ def strip_work(plan, group_rows: int, n: int) -> dict:
     return out
 
 
+def parallel_phase(parallel, a, b32, b16, refs, pruned_csr, xla, tiles,
+                   tile_spmm, panel_spmm, pair_spmm, gpu, card) -> dict:
+    """Phase 10 in the one-rank group: the 16 schedule x local combos on
+    the headline with f32 and bf16 B, then the training steps.  Returns
+    the window's launches and the records' times."""
+    from tpuspmm_torch.kernels.common import round_up
+    from tpuspmm_torch.ops.xla import coo_view
+    from tpuspmm_torch.utils.compare import allclose, max_abs_err
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    mesh1 = parallel.make_mesh((1,), ("rows",))
+    mesh2 = parallel.make_mesh((1, 1))
+    schedules = {
+        "row_sharded": lambda loc, b: parallel.spmm_row_sharded(
+            a, b, mesh1, local=loc),
+        "2d": lambda loc, b: parallel.spmm_2d(a, b, mesh2, local=loc),
+        "ring": lambda loc, b: parallel.spmm_ring(a, b, mesh1, local=loc),
+        "kshard": lambda loc, b: parallel.spmm_kshard(a, b, mesh1,
+                                                      local=loc),
+    }
+    counters = {"tile": tile_spmm.spmm_tiles, "panel": panel_spmm.spmm_panel,
+                "pair": pair_spmm.spmm_pair}
+    # at one rank each shard (and bucket) plan is the single-card plan of
+    # the local's geometry: its entry point's output, computed before the
+    # window, is what every schedule must give bit for bit
+    coo = coo_view(a)
+    single_plans = {
+        "tile": tiles.plan_from_container(a),
+        "panel": panel_spmm.build_panel_plan(
+            coo.rows, coo.cols, coo.values, a.shape, tm=8, tk=128,
+            panel_strips=16),
+        "pair": pair_spmm.build_pair_plan(
+            coo.rows, coo.cols, coo.values, a.shape, tm=8, tk=128,
+            chunk_strips=32)}
+    single_fns = {"xla": lambda b: xla.spmm_xla(a, b),
+                  **{loc: (lambda b, loc=loc: counters[loc](
+                      single_plans[loc], b)) for loc in counters}}
+    single = {}
+    for b in (b32, b16):
+        for loc, fn in single_fns.items():
+            single[loc, b.dtype] = (fn(b), cuda_time_ms(lambda: fn(b)))
+    for counter in counters.values():
+        counter.launches = 0
+    times = {}
+    m = a.shape[0]
+    for b in (b32, b16):
+        tag = "f32" if b.dtype == torch.float32 else "bf16"
+        for sched, run in schedules.items():
+            for loc in ("xla", "tile", "panel", "pair"):
+                before = {n: c.launches for n, c in counters.items()}
+                out = run(loc, b)
+                torch.cuda.synchronize()
+                ran = {n: c.launches - before[n] for n, c in counters.items()}
+                check(ran == {n: int(n == loc) for n in counters},
+                      f"parallel {sched} {loc} {tag} launched {ran}")
+                check(tuple(out.shape) == (m, WIDTH)
+                      and bool(torch.isfinite(out).all()),
+                      f"parallel {sched} {loc} {tag} output finite, "
+                      f"({m}, {WIDTH})")
+                gate = allclose(out, refs[b.dtype])
+                check(gate, f"parallel {sched} {loc} {tag} gate vs f64 "
+                            "oracle")
+                want, single_ms = single[loc, b.dtype]
+                equal = bool(torch.equal(out, want))
+                if loc != "xla":
+                    check(equal, f"parallel {sched} {loc} {tag} equal bit "
+                                 "for bit to the single-card entry point")
+                ms = cuda_time_ms(lambda: run(loc, b))
+                times[sched, loc, tag] = ms
+                emit("parallel", schedule=sched, local=loc, b_dtype=tag,
+                     testcase=HEADLINE, bCols=WIDTH, ranks=1, gate=gate,
+                     bit_equal_single_card=equal,
+                     max_abs_err_single_card=max_abs_err(out, want),
+                     ms=ms, single_card_ms=single_ms, launches=ran, gpu=gpu,
+                     power_limit=card.split(",")[-1].strip())
+                del out
+    del single
+    # what the one-rank collectives cost on their own, at the k-shard
+    # partial's size (6304 x 256 f32): the schedules' time above their
+    # single-card entry
+    group = mesh1.get_group("rows")
+    partial = torch.ones(round_up(m, 8), WIDTH, device=b32.device)
+    out = torch.empty_like(partial)
+    emit("parallel_collectives", shape=list(partial.shape), ranks=1,
+         reduce_scatter_ms=cuda_time_ms(
+             lambda: torch.distributed.reduce_scatter_tensor(
+                 out, partial, group=group)),
+         all_reduce_ms=cuda_time_ms(
+             lambda: torch.distributed.all_reduce(partial, group=group)),
+         gpu=gpu, power_limit=card.split(",")[-1].strip())
+    del partial, out
+
+    # training: pruned weight (a) as CSR, B 512 wide; lr = 1/‖A‖_F² is at
+    # most 1/‖A‖₂², so each step descends
+    k = pruned_csr.shape[1]
+    lr = 1.0 / float(np.sum(np.square(pruned_csr.values, dtype=np.float64)))
+    state = parallel.make_train_state(pruned_csr, 512, mesh2, seed=0)
+    losses, per_step = [], []
+    for _ in range(3):
+        before = tile_spmm.spmm_tiles.launches
+        new_state, loss = parallel.lsq_train_step(state, mesh2, lr=lr)
+        torch.cuda.synchronize()
+        per_step.append(tile_spmm.spmm_tiles.launches - before)
+        losses.append(float(loss))
+        prev, state = state, new_state
+    check(per_step == [2, 2, 2], f"each step launches K3 twice ({per_step})")
+    check(losses[2] < losses[1] < losses[0], f"the loss falls ({losses})")
+    step_ms = cuda_time_ms(lambda: parallel.lsq_train_step(state, mesh2,
+                                                           lr=lr))
+    launches = {n: c.launches for n, c in counters.items()}
+    # the last step's dB against its plain version (outside the window)
+    res = tile_spmm.spmm_tiles(prev["fwd"].local, prev["b"][:k]) \
+        - prev["c_target"]
+    db = tile_spmm.spmm_tiles(prev["bwd"].local, res)
+    check(torch.equal(state["b"][:k], prev["b"][:k] - lr * db),
+          "the step's update is B - lr*dB")
+    db_plain = tile_spmm.tile_spmm_plain(prev["bwd"].local, res, "split")
+    err, scale = max_abs_err(db, db_plain), float(db_plain.abs().max())
+    check(err <= PLAIN_TOL * scale,
+          f"dB against its plain version {err} <= {PLAIN_TOL}*{scale}")
+    emit("parallel_train", weight="a as CSR", shape=list(pruned_csr.shape),
+         nnz=pruned_csr.nnz, n=512, lr=lr, losses=losses,
+         k3_launches_per_step=per_step, step_ms=step_ms,
+         db_max_abs_err=err, db_max_abs=scale,
+         tolerance=f"{PLAIN_TOL}*max|dB| (f32 sums in another order)",
+         gpu=gpu, power_limit=card.split(",")[-1].strip())
+    for name in counters:
+        check(launches[name] > 0, f"{name} launched in the parallel window")
+    return {"launches": launches, "times": times, "step_ms": step_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -397,7 +541,9 @@ def main() -> int:
     from tpuspmm_torch.ops import exact, oracle, vendor
     from tpuspmm_torch.utils import profiling, timing
     from tpuspmm_torch.utils.compare import allclose, max_abs_err
-    from tpuspmm_torch.utils.timing import cuda_time_ms
+    from tpuspmm_torch.utils.timing import card_line, cuda_time_ms
+    # device time: the call replayed in a CUDA graph, its host work hidden
+    from tpuspmm_torch.utils.timing import graph_time_ms as device_ms
 
     dev = torch.device("cuda")
     gpu = torch.cuda.get_device_name(0)
@@ -578,8 +724,8 @@ def main() -> int:
     plans, plan_secs = main_path_plans(a, WIDTH)
     emit("plan_time", testcase=HEADLINE, **plan_secs,
          note="host seconds, first resolve of a fresh container; the "
-              "model's costs are plan bytes over bandwidth (step and strip "
-              "costs unfitted)")
+              "model's costs use the constants fitted on the H100 "
+              "(kernels/dispatch.py)")
     stats = {name: {"max_abs_err": 0.0} for name in entries}
     for name, plan in plans.items():
         for b in (b32, b16):
@@ -1006,8 +1152,9 @@ def main() -> int:
                       report.spmm_flops(a.nnz, WIDTH), hbm)
     m, k = a.shape
     flops = report.spmm_flops(a.nnz, WIDTH)
-    bw = dispatch.thresholds(dev)["panel_hbm_gbps"] * 1e9
-    sol_s = report.spmm_min_bytes(a.nnz, m, k, WIDTH) / bw
+    # the least bytes over the card's data-sheet rate (not the cost model's
+    # fitted plan-stream rate, which is no bandwidth of the card)
+    sol_s = report.spmm_min_bytes(a.nnz, m, k, WIDTH) / hbm
     for config in (Config(), Config(panel_strips=16)):
         out32, kernel = served_by(lambda: tpuspmm_torch.spmm(a, b32,
                                                              config=config))
@@ -1073,11 +1220,68 @@ def main() -> int:
         corpus[name] = (ca, b, ref)
         del out
 
+    # the pair kernel on the serving path: under the fitted constants the
+    # default config serves panel on every dir; a pinned P on medium_2048
+    # (B 2048 wide) prices panel above pair's search
+    ca, b, ref = corpus[PAIR_SERVED]
+    pinned = Config(panel_strips=16)
+    out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b, config=pinned))
+    check(served == "pair" == modelled_kernel(ca, b.shape[1], pinned),
+          f"{PAIR_SERVED} with P pinned to 16 served pair ({served})")
+    check(allclose(out, ref), f"{PAIR_SERVED} pinned-P gate")
+    emit("corpus", config={"panel_strips": 16}, **report.make_record(
+        testcase=PAIR_SERVED, sparsity=ca.sparsity, fmt="csr",
+        kernel_type=0, kernel_name=served, correct=True,
+        kernel_ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b,
+                                                          config=pinned)),
+        n=b.shape[1], device=gpu))
+    del out
+
     launches = {n: fn.launches for n, (fn, _) in entries.items()}
     emit("serving_path_launches", **launches,
          note="tpuspmm_torch.spmm calls only (serves, timing loops)")
     for name, count in launches.items():
         check(count > 0, f"{name} kernel launched on the serving path")
+
+    # the fitted model's prices beside the device times they stand for, on
+    # every dir the default config serves by panel or pair at its width,
+    # and the geometry the unfitted constants (step and strip 0, the data
+    # sheet's bandwidth) served there, timed in the same run: data for the
+    # next refit and for the fit's effect, not a check (launches made here
+    # are outside the serving window)
+    fit_row = {k: v for k, v in dispatch.thresholds(dev).items()
+               if k.startswith("panel_")}
+    unfitted = {"panel_step_us": 0.0, "panel_strip_us": 0.0,
+                "panel_hbm_gbps": report.hbm_gbps(gpu)}
+    fit_a, fit_b = load(FIT_EXTRA)
+    fit_dirs = {HEADLINE: (a, b32), **{n: corpus[n][:2] for n in MAIN_CORPUS},
+                FIT_EXTRA: (fit_a, torch.from_numpy(fit_b.data).to(dev))}
+
+    def timed_geometry(ca, b, kname, g, n_pad) -> dict:
+        plan = plan_of(ca, kname, g, n_pad)
+        fn = entries[kname][0]
+        fn(plan, b)  # its device arrays built before the capture
+        return {"cost_us": g.cost_us, "geometry": geometry(plan),
+                "device_ms": device_ms(lambda: fn(plan, b))}
+
+    for name, (ca, b) in fit_dirs.items():
+        n_pad = round_up(int(b.shape[1]), 128)
+        geoms = dict(zip(("panel", "pair"), resolved(ca, n_pad)))
+        rec = {kname: timed_geometry(ca, b, kname, g, n_pad)
+               for kname, g in geoms.items()}
+        served = modelled_kernel(ca, n_pad, Config())
+        with mock.patch.dict(dispatch.H100_FIT, unfitted):
+            was_served = modelled_kernel(ca, n_pad, Config())
+            was = dict(zip(("panel", "pair"), resolved(ca, n_pad)))
+        rec["unfitted"] = dict(
+            timed_geometry(ca, b, was_served, was[was_served], n_pad),
+            kernel=was_served, constants=unfitted)
+        emit("model_fit", testcase=name, bCols=int(b.shape[1]),
+             served=served, constants=fit_row,
+             served_over_unfitted_device_ms=(
+                 rec[served]["device_ms"] / rec["unfitted"]["device_ms"]),
+             gpu=gpu, power_limit=card.split(",")[-1].strip(), **rec)
+    del fit_dirs, fit_a, fit_b
 
     # ---- 5b. BSR serving path: tpuspmm_torch.spmm only ------------------
     all_counters = {"panel": panel_spmm.spmm_panel,
@@ -1511,7 +1715,37 @@ def main() -> int:
                   "gates are printed beside their plain versions'")
         del b
 
-    # ---- 10. kernels line, card, ok --------------------------------------
+    # ---- 10. parallel: the distributed schedules in a one-rank NCCL group --
+    t_par = time.perf_counter()
+    from tpuspmm_torch import parallel
+    from tpuspmm_torch.parallel import multihost
+    from tpuspmm_torch.ops import xla
+
+    check(multihost.initialize(device="cuda") is False,
+          "a one-rank group starts with no launcher")
+    try:
+        check(torch.distributed.get_backend() == "nccl", "NCCL on the card")
+        par_stats = parallel_phase(parallel, a, b32, b16, refs, pruned_csr,
+                                   xla, tiles, tile_spmm, panel_spmm,
+                                   pair_spmm, gpu, card)
+    finally:
+        multihost.shutdown()
+    example = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m",
+         "tpuspmm_torch.examples.distributed_serving", "--data-dir",
+         HEADLINE, "--width", str(WIDTH), "-l", "panel"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    emit("distributed_serving_example", returncode=example.returncode,
+         stdout=example.stdout.splitlines()[-6:])
+    check(example.returncode == 0 and example.stdout.count("correct=True")
+          == 4, f"the example under torch.distributed.run: "
+                f"{example.stdout[-1500:]} {example.stderr[-1500:]}")
+    par_launches = par_stats["launches"]
+    emit("parallel_phase", seconds=time.perf_counter() - t_par,
+         launches=par_launches)
+
+    # ---- 11. kernels line, card, ok --------------------------------------
     kernels = {  # name: (entry, source, TPU kernel body it replaces)
         "panel": ("panel_strip_spmm", "strip_spmm.cu",
                   "tpuspmm/kernels/panel_spmm.py:1050"),
@@ -1538,7 +1772,8 @@ def main() -> int:
                 "source": f"tpuspmm_torch/csrc/{source}",
                 "replaces": replaces, "launches": count,
                 "launches_window": window,
-                "tuned_launches": tuned_window[name]}
+                "tuned_launches": tuned_window[name],
+                "parallel_launches": par_launches.get(name, 0)}
         if name in launches:
             line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
@@ -1592,6 +1827,7 @@ def main() -> int:
         "launches_window": "serving (tpuspmm_torch.spmm on BSR weights)",
         "engine_launches": engine_launches["bsr_stream"],
         "tuned_launches": tuned_window["bsr_stream"],
+        "parallel_launches": 0,
         "kernel_phase_launches": bsr_window,
         "max_abs_err": max(r[t]["max_abs_err"] for r in k6_stats.values()
                            for t in ("f32", "bf16")),

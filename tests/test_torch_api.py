@@ -94,24 +94,51 @@ def test_dispatch_serves_the_cheaper_model():
     assert torch.equal(dispatch.spmm_pallas(a_t, b), want)
 
 
-@pytest.mark.parametrize("name", DIRS)
-def test_unfitted_model_never_prices_pair_below_panel(name):
-    """With the step and strip costs unfitted (0.0) the model prices plan
-    bytes alone: on every data/ dir pair's modelled serve time is not
-    below panel's, so the default dispatch serves the panel kernel."""
+# the default route at B width 256 on every data/ dir under the fitted
+# H100 constants, with the panel geometry the model picks (P, tm, tk, row
+# order) and pair's (CH, row order): pair never prices below panel at the
+# default config, since pair's candidates (tm 8, tk 128) are a subset of
+# panel's and pair at CH = c prices as panel at P = c
+FITTED_ROUTES = {
+    "large_15120": ("panel", (8, 16, 128, "natural"), (8, "natural")),
+    "large_20000": ("exact", (8, 16, 128, "signature"), (16, "signature")),
+    "large_21074": ("panel", (8, 16, 512, "first_centroid"),
+                    (32, "natural")),
+    "large_25605": ("panel", (8, 16, 128, "natural"), (8, "natural")),
+    "medium_1484": ("exact", (8, 16, 128, "signature"), (16, "signature")),
+    "medium_2048": ("panel", (16, 16, 128, "first_centroid"),
+                    (8, "natural")),
+    "medium_2880": ("exact", (8, 8, 128, "signature"), (16, "signature")),
+    "medium_4000": ("panel", (8, 16, 128, "natural"), (16, "natural")),
+    "medium_4096": ("panel", (16, 8, 512, "signature"), (32, "signature")),
+    "small_10x10": ("densify", (8, 8, 128, "natural"), (8, "natural")),
+    "small_210": ("densify", (8, 16, 256, "natural"), (16, "natural")),
+    "small_32x32": ("densify", (8, 8, 128, "natural"), (8, "natural")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FITTED_ROUTES))
+def test_fitted_routes_on_data_dirs(name):
+    """The fitted model's default route and geometries at w256; where the
+    panel / pair step decides, panel prices no higher than pair."""
     a = convert.load_sparse(data_dir(name), "csr")
+    route, panel, pair = FITTED_ROUTES[name]
+    assert dispatch.route(a, torch.zeros(a.shape[1], 256)) == route
     cap = panel_spmm.PLAN_BYTES_CAP
     geom = panel_spmm.resolve_panel_geometry(a, 256, plan_bytes_cap=cap)
     pgeom = pair_spmm.resolve_pair_geometry(a, 256, plan_bytes_cap=cap)
-    assert pgeom.cost_us >= geom.cost_us
+    assert (geom.panel_strips, geom.tm, geom.tk, geom.order_kind) == panel
+    assert (pgeom.chunk_strips, pgeom.order_kind) == pair
+    assert geom.cost_us <= pgeom.cost_us
 
 
 def test_pinned_panel_strips_route_to_pair(monkeypatch):
-    """A pinned P prices the panel plan above pair's searched one: the
-    dispatcher serves the pair kernel, and only it."""
-    a = convert.load_sparse(data_dir("medium_2048"), "csr")
+    """A pinned P prices the panel plan above pair's searched one on
+    large_15120 (the panel search keeps tm 8, tk 128 at P = 16, where pair
+    takes CH = 8): the dispatcher serves the pair kernel, and only it."""
+    a = convert.load_sparse(data_dir("large_15120"), "csr")
     b = torch.from_numpy(np.random.default_rng(8).uniform(
-        -1, 1, (2048, 128)).astype(np.float32))
+        -1, 1, (a.shape[1], 128)).astype(np.float32))
     cap = panel_spmm.PLAN_BYTES_CAP
     geom = panel_spmm.resolve_panel_geometry(a, 128, panel_strips=16,
                                              plan_bytes_cap=cap)
@@ -269,8 +296,9 @@ def test_exact_predicates_match_tpuspmm():
 
 def test_thresholds_and_roofline_tables():
     th = dispatch.thresholds("cpu")
-    assert th["panel_step_us"] == th["panel_strip_us"] == 0.0
-    assert th["panel_hbm_gbps"] == report.HBM_GBPS["NVIDIA H100 80GB HBM3"]
+    assert {k: th[k] for k in dispatch.H100_FIT} == dispatch.H100_FIT
+    assert th["panel_step_us"] > 0 and th["panel_strip_us"] > 0
+    assert th["panel_gather_gbps"] == report.HBM_GBPS["NVIDIA H100 80GB HBM3"]
     with pytest.raises(KeyError):
         report.hbm_gbps("Some Other Card")
     with pytest.raises(ValueError):

@@ -297,8 +297,9 @@ def test_group_index_walk_reproduces_plain(tm, tk, sm, reorder, empty, nnz):
 
 def test_group_index_counts_on_large_25605():
     """The figure behind the strip kernel's B traffic: at the dispatcher's
-    geometry (tm 8, tk 128, P 8) 6,893 real strips make 1,412 (group,
-    k-tile) entries in 64-row groups, each one B tile load a column tile."""
+    geometry under the fitted H100 constants (tm 16, tk 128, P 8) 3,797
+    real strips make 1,412 (group, k-tile) entries in 64-row groups, each
+    one B tile load a column tile: as many as tm 8's 6,893 strips made."""
     from tpuspmm_torch.data import data_dir
     from tpuspmm_torch.formats import convert
 
@@ -306,9 +307,9 @@ def test_group_index_counts_on_large_25605():
     geom = tp.resolve_panel_geometry(a, 256,
                                      plan_bytes_cap=tp.PLAN_BYTES_CAP)
     plan = tp.panel_plan_from_geometry(a, geom)
-    assert (plan.tm, plan.tk, plan.panel_strips) == (8, 128, 8)
-    assert len(plan.offs.reshape(-1)) == 7688
-    assert len(plan.strip_index()[1]) == 6893
+    assert (plan.tm, plan.tk, plan.panel_strips) == (16, 128, 8)
+    assert len(plan.offs.reshape(-1)) == 4584
+    assert len(plan.strip_index()[1]) == 3797
     group_ptr, group_kt, _ = plan.group_index(tp.GROUP_ROWS // plan.tm)
     assert len(group_ptr) - 1 == 99 and group_ptr[-1] == len(group_kt) == 1412
     check_group_index(plan, tp.GROUP_ROWS // plan.tm)

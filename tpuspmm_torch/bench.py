@@ -36,31 +36,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-
-
-def graph_ms(fn, iters: int) -> float:
-    """Device time of ``fn``'s kernels: ``fn`` captured in a CUDA graph and
-    replayed, so its host work does not show."""
-    from tpuspmm_torch.utils.timing import cuda_time_ms
-
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    torch.cuda.synchronize()
-    return cuda_time_ms(graph.replay, iters=iters)
 
 
 def main(argv=None) -> int:
@@ -94,7 +73,8 @@ def main(argv=None) -> int:
     from tpuspmm_torch.kernels import dispatch
     from tpuspmm_torch.ops import oracle, vendor
     from tpuspmm_torch.utils.compare import allclose
-    from tpuspmm_torch.utils.timing import serve_time_ms
+    from tpuspmm_torch.utils.timing import (card_line, graph_time_ms,
+                                            serve_time_ms)
 
     data = args.data_dir if os.path.isdir(args.data_dir) else data_dir(
         args.data_dir)
@@ -130,7 +110,7 @@ def main(argv=None) -> int:
 
     correct = allclose(serve(b), oracle.spmm_scipy_oracle(a, b_host))
     kernel_ms = serve_time_ms(serve, b, args.repeats)
-    device_ms = graph_ms(lambda: serve(b), args.repeats) if on_card else None
+    device_ms = graph_time_ms(lambda: serve(b), args.repeats) if on_card else None
     vendor.spmm_vendor(a, b)
     vendor_ms = serve_time_ms(lambda bb: vendor.spmm_vendor(a, bb), b,
                               args.repeats)

@@ -35,20 +35,32 @@ from tpuspmm_torch.kernels.common import round_up
 # Routing and cost constants.
 # - densify_max_bytes, densify_min_density and tile_min_nnz_per_chunk are
 #   the JAX package's routing rule (its v5e row), not fitted on this card.
-# - panel_step_us (per panel or chunk) and panel_strip_us (per strip) are
-#   not yet fitted on the H100: 0.0 until bench/fit_panel_model.py is
-#   ported and run there (ROADMAP).  With them at zero the model prices
-#   plan bytes alone.
-# The bandwidths are the card's data-sheet figure; the "cpu" row holds the
-# H100 SXM's, so the CPU tests pick the route the card picks.
-_UNFITTED = {"densify_max_bytes": 128 * 1024 * 1024,
-             "densify_min_density": 0.004,
-             "tile_min_nnz_per_chunk": 40.0,
-             "panel_step_us": 0.0, "panel_strip_us": 0.0}
+# - panel_step_us (per panel or pair chunk), panel_strip_us (per strip)
+#   and panel_hbm_gbps (the plan stream's effective rate) are fitted on an
+#   NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi) by
+#   tools/fit_panel_model.py from tools/ablate_panel_h100.jsonl: 55
+#   gate-passing panel "highest" records of 5 matrices at B width 256,
+#   device time (the launch replayed in a CUDA graph), residual RMS
+#   0.0885 ms on 0.107-0.624 ms launches.  The residual is large because
+#   the strip kernel's time follows its (64-row group, k-tile) entries
+#   and B traffic, which the model does not count (PERF.md).  So the
+#   fitted panel_hbm_gbps is a cost term (JAX's name), not the card's
+#   memory rate: a roofline reads engine/report.hbm_gbps instead.
+# - panel_gather_gbps, the un-permute's rate: the fit sets its term to
+#   zero (not identifiable from those records), so it keeps the card's
+#   data-sheet bandwidth.
+# The fit was taken on the SXM part; other H100s get the same fitted
+# terms and their own data-sheet bandwidth.  The "cpu" row is the H100
+# SXM's, so the CPU tests pick the route the card picks.
+_ROUTING = {"densify_max_bytes": 128 * 1024 * 1024,
+            "densify_min_density": 0.004,
+            "tile_min_nnz_per_chunk": 40.0}
+H100_FIT = {"panel_step_us": 0.022, "panel_strip_us": 0.01041,
+            "panel_hbm_gbps": 221.4}
 
 
 def _row(gbps: float) -> dict:
-    return dict(_UNFITTED, panel_hbm_gbps=gbps, panel_gather_gbps=gbps)
+    return dict(_ROUTING, **H100_FIT, panel_gather_gbps=gbps)
 
 
 def thresholds(device="cpu") -> dict:

@@ -7,6 +7,12 @@ whose host work is shorter than the previous call's device work adds no
 idle time; one whose host work is longer shows that gap, which a serving
 caller pays as well.
 
+``graph_time_ms`` is the device time of a callable's kernels: the call
+captured once in a CUDA graph and the graph replayed through
+``cuda_time_ms``, so the wrapper's host work does not show.  ``card_line``
+is the card's name and power limit as ``nvidia-smi`` gives them, which
+every time taken on the card is reported beside.
+
 ``serve_time_ms`` is the one timer the autotuner (``engine/autotune.py``)
 calls: ``cuda_time_ms`` of ``fn(b)`` on a CUDA tensor, so a host-bound
 entry point is ranked by what a serve costs, and the host clock's median
@@ -16,6 +22,7 @@ a burst of host noise in one window does not decide a ranking.
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Callable
 
@@ -37,6 +44,25 @@ def cuda_time_ms(fn: Callable, warmup: int = 3, iters: int = 20) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s line for the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def graph_time_ms(fn: Callable, iters: int = 20) -> float:
+    """Device time of ``fn``'s kernels: ``fn`` captured in a CUDA graph and
+    replayed.  ``fn`` must have run once already (its plans and device
+    arrays built: a capture allocates nothing it keeps)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return cuda_time_ms(graph.replay, iters=iters)
 
 
 def serve_time_ms(fn: Callable, b: torch.Tensor, iters: int = 8,
