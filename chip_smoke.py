@@ -10,8 +10,9 @@ Prints one JSON object per phase:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off for the plain versions;
-2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc,
-   one process each, started together; ptxas's registers and spills of
+2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc
+   and the two C++ sources of tpuspmm_torch/native with g++, one process
+   each, started together; ptxas's registers and spills of
    every kernel of the three, and the tensor-core instructions (HMMA,
    HGMMA) in their SASS (cuobjdump), which must not be zero (K6: HGMMA,
    wgmma); no tile-owner or K6 kernel may spill, and the occupancy
@@ -161,10 +162,34 @@ Prints one JSON object per phase:
    ``tpuspmm_torch.examples.distributed_serving`` under ``python -m
    torch.distributed.run --standalone --nproc_per_node=1`` on large_25605
    w256 with the panel local: exit 0, all four schedules correct;
+10b. sweeps (the reference's benchmark harness): both host libraries
+   (``tpuspmm_torch/native``, built with g++ in phase 2) load; the tile
+   plan of the 2048 x 2048 operand at density 0.9 (3.77 M nonzeros) built
+   natively and by numpy, equal, both timed; large_25605's .mtx read
+   natively equals scipy's; ``gen_sparse``, ``convert_mtx`` and
+   ``validate`` into build/sweeps/tools (the converted small_32x32's
+   result.expect against the committed golden); then, launch counts and
+   ``native.plan_builds`` zeroed, in one window: ``sweep_formats`` on
+   SWEEP_DIRS x CSR / COO / BSR / ELL (f32 B, on-disk or 512 synthesised
+   columns, ``--skip-seq --repeats 3 --retries 0``), ``sweep_sparsity``
+   at SWEEP_DENSITIES, ``pruned_llm`` at 4 x 4 blocks ({0.8, 0.9, 0.95})
+   and 128 x 128 blocks (0.9: K6) in f32 and bf16, ``pruned_mlp`` with
+   f32 and bf16 activations and ``--sharded`` under ``python -m
+   torch.distributed.run --nproc_per_node=1``, and ``summarize``.  Every
+   run exits 0 (no incorrect record outside verified-only, no error
+   record, no faulted group), the 128 x 128 weight's block stream is K6
+   launched once a call, the panel, tile, C-resident and K6 kernels
+   launched, and every plan of 200,000 nonzeros or more was built
+   natively.  One record per run (its seconds), then one with the
+   window's launches and, per (testcase, format, B dtype), the best hand
+   kernel's ``cudaKernelTimeMs`` beside cuSPARSE's.  Records and the
+   summary go to build/sweeps/ (the whole corpus and all nine densities
+   run as calls of their own, README);
 11. the kernels line (all seven kernels, with the least time the card
    could take for the work, ``bound_ms``, the library call's time, the
-   tuned window's launches, ``tuned_launches``, and the parallel
-   window's, ``parallel_launches``;
+   tuned window's launches, ``tuned_launches``, the parallel
+   window's, ``parallel_launches``, and the sweeps window's,
+   ``sweeps_launches``;
    every other number in it measured in this run: floors and plan work
    stay in their phase records), the card line, and the final ok line.
 
@@ -180,6 +205,7 @@ import dataclasses
 import io
 import json
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -258,6 +284,12 @@ ENGINE_RUNS = (
     ["--auto", "-d", PRUNED_DIR],
 )
 ROUTES = {"small_32x32": "densify", "medium_1484": "exact"}
+# the sweeps phase: the corpus dirs it sweeps at their on-disk B
+# (large_25605 synthesises 512 columns; the whole corpus runs as its own
+# call, README), the sparsity sweep's size (the reference's) and densities
+SWEEP_DIRS = ("large_25605", "medium_4096", "medium_2048", "small_32x32")
+SWEEP_SHAPE = (2048, 2048)
+SWEEP_DENSITIES = "0.1,0.5,0.9"
 # geometries of the strip kernel (K1, K2) the corpus does not reach, each
 # against the plain versions at both tiers: (rows, cols, density, tm, tk,
 # sm or None, row-permuted, bf16 plan, B width, B dtype, seed).  Strips of
@@ -510,6 +542,233 @@ def parallel_phase(parallel, a, b32, b16, refs, pruned_csr, xla, tiles,
     return {"launches": launches, "times": times, "step_ms": step_ms}
 
 
+def run_main(main_fn, argv) -> tuple:
+    """(exit status, stdout, stderr, seconds) of a module's ``main(argv)``
+    run in this process."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        status = main_fn(argv)
+    return status, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def read_records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.startswith("{")]
+
+
+def sweeps_phase(out_dir: str, gpu: str, card: str) -> dict:
+    """Phase 10b: the reference's benchmark harness (``tpuspmm_torch.native``,
+    ``.tools``, ``.sweeps``, the pruned-MLP example) on the card: the corpus
+    sweep on SWEEP_DIRS with f32 B, the sparsity sweep at SWEEP_DENSITIES.
+    Records go to ``out_dir``.  Returns the launch counts of the sweep
+    window."""
+    from tpuspmm_torch import native
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.examples import pruned_mlp
+    from tpuspmm_torch.formats import CSR, tiles
+    from tpuspmm_torch.native import fastio, tileplan
+    from tpuspmm_torch.sweeps import (pruned_llm, summarize, sweep_formats,
+                                      sweep_sparsity)
+    from tpuspmm_torch.sweeps.common import hand_kernels
+    from tpuspmm_torch.tools import convert_mtx, gen_sparse, validate
+
+    t_phase = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    power = card.split(",")[-1].strip()
+
+    # ---- native: both host libraries, the plan builder against numpy ----
+    for lib in (fastio.LIBRARY, tileplan.LIBRARY):
+        check(lib.available(), f"{os.path.basename(lib.source)} builds and "
+                               f"loads on this host ({lib.error})")
+    base = CSR.random(SWEEP_SHAPE[0], SWEEP_SHAPE[1], 0.9, seed=0, lo=-1.0,
+                      hi=1.0)
+    coo = base.to_coo()
+    args = (coo.rows, coo.cols, coo.values, coo.shape)
+    t0 = time.perf_counter()
+    plan_native = tiles.build_tile_plan(*args)
+    native_s = time.perf_counter() - t0
+    with mock.patch.object(tiles, "NATIVE_MIN_NNZ", coo.nnz + 1):
+        t0 = time.perf_counter()
+        plan_numpy = tiles.build_tile_plan(*args)
+        numpy_s = time.perf_counter() - t0
+    for f in ("rt", "kt", "first", "rows", "cols", "vals"):
+        x, y = getattr(plan_native, f), getattr(plan_numpy, f)
+        check(x.dtype == y.dtype and np.array_equal(x, y),
+              f"native tile plan's {f} equals numpy's")
+    mtx = os.path.join(data_dir(HEADLINE), "n4c6-b13.mtx")
+    t0 = time.perf_counter()
+    shape, r, c, v = fastio.read_mtx_triplets(mtx)
+    mtx_native_s = time.perf_counter() - t0
+    import scipy.io
+
+    t0 = time.perf_counter()
+    ref = scipy.io.mmread(mtx)
+    mtx_scipy_s = time.perf_counter() - t0
+    check(shape == ref.shape and np.array_equal(r, ref.row)
+          and np.array_equal(c, ref.col)
+          and np.array_equal(v, ref.data.astype(np.float64)),
+          f"native .mtx triplets equal scipy's on {HEADLINE}")
+    emit("sweeps_native", libraries=[
+        os.path.relpath(lib.library_path(), REPO)
+        for lib in (fastio.LIBRARY, tileplan.LIBRARY)],
+        flags=" ".join(fastio.LIBRARY.flags), nnz=coo.nnz,
+        tile_plan_native_s=native_s, tile_plan_numpy_s=numpy_s,
+        mtx_native_s=mtx_native_s, mtx_scipy_s=mtx_scipy_s,
+        host_cpu=platform.processor() or platform.machine(),
+        host_cores=os.cpu_count())
+    del base, coo, plan_native, plan_numpy
+
+    # ---- tools: generate, convert, validate -----------------------------
+    t0 = time.perf_counter()
+    tools_dir = os.path.join(out_dir, "tools")
+    shutil.rmtree(tools_dir, ignore_errors=True)
+    sp_dir = gen_sparse.gen_dir(tools_dir, 0.05, 512, 512, 64, seed=0)
+    mtx_dir = os.path.join(tools_dir, "small_32x32")
+    os.makedirs(mtx_dir)
+    src = data_dir("small_32x32")
+    for name in ("Hamrle1.mtx", "dense.mtx"):
+        shutil.copy(os.path.join(src, name), mtx_dir)
+    written = convert_mtx.convert_dir(mtx_dir)
+    failures = {}
+    for d in (sp_dir, mtx_dir):
+        status, out, err, _ = run_main(validate.main,
+                                       [d, "--write-expect"])
+        failures[os.path.basename(d)] = status
+        check(status == 0, f"validate {d}: {out[-500:]} {err[-500:]}")
+    golden = np.loadtxt(os.path.join(src, "result.expect"))
+    mine = np.loadtxt(os.path.join(mtx_dir, "result.expect"))
+    check(np.allclose(mine, golden, rtol=1e-2, atol=1e-3),
+          "the converted small_32x32's result.expect agrees with the "
+          "committed golden")
+    emit("sweeps_tools", seconds=time.perf_counter() - t0,
+         converted=[os.path.basename(w) for w in written],
+         validate_status=failures)
+
+    # ---- the sweeps, in one launch window --------------------------------
+    counters = hand_kernels()
+    for counter in counters.values():
+        counter.launches = 0
+    native.plan_builds.update(native=0, numpy=0)
+    runs = []
+
+    def run(tag, main_fn, argv):
+        status, out, err, secs = run_main(main_fn, argv)
+        tail = err.strip().splitlines()[-1:] if err.strip() else []
+        runs.append({"run": tag, "status": status, "seconds": secs,
+                     "stderr_tail": tail})
+        emit("sweeps_run", run=tag, status=status, seconds=secs,
+             stderr_tail=tail)
+        if status != 0:
+            print(err[-3000:], file=sys.stderr, flush=True)
+        return out
+
+    formats_path = os.path.join(out_dir, "formats.jsonl")
+    sparsity_path = os.path.join(out_dir, "sparsity.jsonl")
+    llm_path = os.path.join(out_dir, "pruned_llm.jsonl")
+    for p in (formats_path, sparsity_path, llm_path):
+        open(p, "w").close()
+    run("sweep_formats f32", sweep_formats.main,
+        ["--dirs", ",".join(SWEEP_DIRS), "--formats", "csr,coo,bsr,ell",
+         "--skip-seq", "--repeats", "3", "--retries", "0", "--out",
+         formats_path])
+    run("sweep_sparsity f32", sweep_sparsity.main,
+        ["--densities", SWEEP_DENSITIES, "--skip-seq", "--repeats", "3",
+         "--out", sparsity_path])
+    for block, sparsities in ((4, "0.8,0.9,0.95"), (128, "0.9")):
+        for dtype in ("f32", "bf16"):
+            out = run(f"pruned_llm --block {block} {dtype}", pruned_llm.main,
+                      ["--block", str(block), "--block-sparsity", sparsities,
+                       "--b-dtype", dtype])
+            with open(llm_path, "a") as f:
+                f.write(out.strip().splitlines()[-1] + "\n")
+    for dtype in ("f32", "bf16"):
+        run(f"pruned_mlp {dtype}", pruned_mlp.main,
+            ["--activations-dtype", dtype])
+    t0 = time.perf_counter()
+    sharded = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "tpuspmm_torch.examples.pruned_mlp",
+         "--sharded"], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    runs.append({"run": "pruned_mlp --sharded (torch.distributed.run)",
+                 "status": sharded.returncode,
+                 "seconds": time.perf_counter() - t0})
+    emit("sweeps_run", **runs[-1], stdout=sharded.stdout.splitlines()[-2:])
+    if sharded.returncode != 0:
+        print(sharded.stderr[-3000:], file=sys.stderr, flush=True)
+    launches = {n: c.launches for n, c in counters.items()}
+    plan_builds = dict(native.plan_builds)
+
+    # ---- checks over the records, and the summary ------------------------
+    # every run exits 0: no failed record, no faulted group, the examples
+    # at the gate (they exit 1 when they miss it)
+    check(all(r["status"] == 0 for r in runs), "every sweep run exits 0 "
+          f"({[(r['run'], r['status']) for r in runs]})")
+    formats = read_records(formats_path)
+    sparsity = read_records(sparsity_path)
+    llm = read_records(llm_path)
+    for rec in formats + sparsity:
+        what = f"{rec['testcase']} {rec['format']} {rec['kernelName']}"
+        check("error" not in rec and "device_fault" not in rec,
+              f"{what}: no error record ({rec.get('error')})")
+        check(rec.get("skipped") == "inadmissible"
+              or rec["correct"] == "1" or rec.get("verifiedOnly") == "1",
+              f"{what} passes the gate")
+    for line in llm:
+        for rec in line["results"]:
+            check("error" not in rec, f"pruned_llm {rec}")
+            check(rec.get("skipped") == "inadmissible" or rec["correct"]
+                  or rec.get("verifiedOnly") == "1",
+                  f"pruned_llm block {line['block']} {line['bDtype']} "
+                  f"{rec['variant']} passes the gate")
+    k6_runs = [rec for line in llm if line["block"] == 128
+               for rec in line["results"]
+               if rec["variant"] == "pallas_block_stream"]
+    check(k6_runs and all(r["blockStream"] == "k6" and r["launched"] == {
+        "bsr_stream": 1} for r in k6_runs),
+        f"the 128 x 128 pruned weight's block stream is K6 ({k6_runs})")
+    check(plan_builds["native"] > 0 and plan_builds["numpy"] == 0,
+          f"every tile plan of {tiles.NATIVE_MIN_NNZ} nonzeros or more in "
+          f"the sweeps was built natively ({plan_builds})")
+    for name in ("panel", "tile", "cres", "bsr_stream"):
+        check(launches[name] > 0, f"{name} launched in the sweeps")
+
+    def best_hand(recs):
+        ok = [r for r in recs if r.get("correct") == "1"
+              and r["kernelName"].startswith("pallas_")]
+        return min(ok, key=lambda r: r["cudaKernelTimeMs"]) if ok else None
+
+    groups = {}
+    for rec in formats + sparsity:
+        groups.setdefault((rec["testcase"], rec["format"], rec["bDtype"]),
+                          []).append(rec)
+    versus = []
+    for (tc, fmt, dtype), recs in sorted(groups.items()):
+        best = best_hand(recs)
+        vendor = next((r for r in recs if r["kernelType"] == "-1"
+                       and r.get("correct") == "1"), None)
+        versus.append({
+            "testcase": tc, "format": fmt, "b_dtype": dtype,
+            "best_hand": best and best["kernelName"],
+            "best_hand_ms": best and best["cudaKernelTimeMs"],
+            "cusparse_ms": vendor and vendor["cudaKernelTimeMs"]})
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table), \
+            contextlib.redirect_stderr(io.StringIO()):
+        status = summarize.main([formats_path, sparsity_path])
+    with open(os.path.join(out_dir, "summary.md"), "w") as f:
+        f.write(f"{card}\n\n{table.getvalue()}")
+    check(status == 0, "summarize finds no incorrect record")
+    emit("sweeps", seconds=time.perf_counter() - t_phase,
+         gpu=gpu, power_limit=power, runs=runs, launches=launches,
+         native_plan_builds=plan_builds, best_hand_vs_cusparse=versus,
+         records={"formats": len(formats), "sparsity": len(sparsity),
+                  "pruned_llm": sum(len(x["results"]) for x in llm)},
+         out_dir=os.path.relpath(out_dir, REPO))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -559,10 +818,13 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
+    from tpuspmm_torch.native import fastio, tileplan
+
     libraries = (strip_cuda.LIBRARY, chunk_cuda.LIBRARY, bsr_cuda.LIBRARY)
-    with ThreadPoolExecutor(len(libraries)) as pool:
-        list(pool.map(lambda lib: lib.build(), libraries))
-    for lib in libraries:
+    host_libraries = (fastio.LIBRARY, tileplan.LIBRARY)
+    with ThreadPoolExecutor(len(libraries) + len(host_libraries)) as pool:
+        list(pool.map(lambda lib: lib.build(), libraries + host_libraries))
+    for lib in libraries + host_libraries:
         lib.load()
     # the strip routine must run its products on the tensor cores; ptxas's
     # report (kept beside the library, so a cached build has it too) must
@@ -584,7 +846,7 @@ def main() -> int:
         for bb in (False, True) for wide in (False, True)
         for s2 in (False, True)}
     emit("build", sources=[os.path.relpath(lib.source, REPO)
-                           for lib in libraries],
+                           for lib in libraries + host_libraries],
          seconds=time.perf_counter() - t0,
          flags=" ".join(cuda_build.NVCC_FLAGS),
          strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas,
@@ -1745,6 +2007,10 @@ def main() -> int:
     emit("parallel_phase", seconds=time.perf_counter() - t_par,
          launches=par_launches)
 
+    # ---- 10b. sweeps: native, tools, corpus, sparsity, pruned LLM / MLP --
+    sweep_launches = sweeps_phase(os.path.join(REPO, "build", "sweeps"),
+                                  gpu, card)
+
     # ---- 11. kernels line, card, ok --------------------------------------
     kernels = {  # name: (entry, source, TPU kernel body it replaces)
         "panel": ("panel_strip_spmm", "strip_spmm.cu",
@@ -1773,7 +2039,8 @@ def main() -> int:
                 "replaces": replaces, "launches": count,
                 "launches_window": window,
                 "tuned_launches": tuned_window[name],
-                "parallel_launches": par_launches.get(name, 0)}
+                "parallel_launches": par_launches.get(name, 0),
+                "sweeps_launches": sweep_launches[name]}
         if name in launches:
             line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
@@ -1828,6 +2095,7 @@ def main() -> int:
         "engine_launches": engine_launches["bsr_stream"],
         "tuned_launches": tuned_window["bsr_stream"],
         "parallel_launches": 0,
+        "sweeps_launches": sweep_launches["bsr_stream"],
         "kernel_phase_launches": bsr_window,
         "max_abs_err": max(r[t]["max_abs_err"] for r in k6_stats.values()
                            for t in ("f32", "bf16")),

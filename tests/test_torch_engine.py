@@ -152,6 +152,22 @@ def test_routes_match_jax(name, jax_route, jax_constants):
             jax_route(a_j, 256), fmt
 
 
+@pytest.mark.parametrize("name", DIRS)
+def test_routes_match_jax_under_the_h100_fit(name, jax_route, monkeypatch):
+    """JAX's dispatcher fed the port's fitted H100 row
+    (``dispatch.H100_FIT``) takes the port's route on every dir: pair
+    never being served at the default config is the reference's pricing
+    under those constants, not a difference of the port.  Fresh
+    containers: the geometries cached on them were priced otherwise."""
+    row = dict(jdispatch.thresholds(), **dispatch.thresholds("cpu"))
+    monkeypatch.setattr(jdispatch, "thresholds", lambda: row)
+    d = data_dir(name)
+    for fmt in ("csr", "coo"):
+        a_j, a_t = jconvert.load_sparse(d, fmt), convert.load_sparse(d, fmt)
+        assert dispatch.route(a_t, torch.zeros(a_t.shape[1], 256)) == \
+            jax_route(a_j, 256), fmt
+
+
 TILE_FAMILY = ("staged", "cres", "tile")
 
 

@@ -46,6 +46,14 @@ class COO(MatrixBase):
             row_sorted=bool(np.all(np.diff(m.row) >= 0)),
         )
 
+    @classmethod
+    def random(cls, rows: int, cols: int, density: float,
+               seed: int = 0) -> "COO":
+        """``CSR.random``'s matrix as COO (``tpuspmm.formats.COO.random``)."""
+        from tpuspmm_torch.formats.csr import CSR
+
+        return CSR.random(rows, cols, density, seed).to_coo()
+
     def sort_by_row(self) -> "COO":
         if self.row_sorted:
             return self

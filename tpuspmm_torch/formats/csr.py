@@ -40,6 +40,21 @@ class CSR(MatrixBase):
             shape=tuple(m.shape),
         )
 
+    @classmethod
+    def random(cls, rows: int, cols: int, density: float, seed: int = 0,
+               lo: float = -100.0, hi: float = 100.0) -> "CSR":
+        """A seeded random matrix, equal to ``tpuspmm.formats.CSR.random``'s:
+        ``scipy.sparse.random`` with values uniform in [lo, hi) (the
+        reference generator's ±100 by default, gen_sparse.py:63-84).  At
+        that scale and a high density f32 sums cannot meet the abs-1e-3
+        gate on cancelling outputs: a verification sweep passes ±1."""
+        import scipy.sparse
+
+        rng = np.random.default_rng(seed)
+        return cls.from_scipy(scipy.sparse.random(
+            rows, cols, density=density, format="csr", random_state=rng,
+            data_rvs=lambda n: rng.uniform(lo, hi, n)))
+
     def to_scipy(self):
         import scipy.sparse
 

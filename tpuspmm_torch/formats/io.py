@@ -9,11 +9,12 @@
   ``*_values_colmajor.ell``, one line of values per column.  The row-major
   pair (``*_colind.ell`` + ``*_values.ell``) is written only.
 - ``dense.in`` — header "rows cols [ignored]"; rows lines of cols values
-- ``.mtx``     — MatrixMarket, through scipy
+- ``.mtx``     — MatrixMarket
 
-Counterpart of ``tpuspmm/formats/io.py`` without its native fast path: the
-token stream is parsed by numpy.  The writers produce the JAX package's
-bytes.
+Counterpart of ``tpuspmm/formats/io.py``.  The token stream and a
+coordinate ``.mtx`` are parsed by the port's host library
+(``native/fastio``) where it builds, else by numpy and scipy, with the
+same values bit for bit.  The writers produce the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ import numpy as np
 
 
 def _numeric_body(path: str, skip_lines: int) -> np.ndarray:
+    from tpuspmm_torch.native import NativeUnavailable, fastio
+
+    try:
+        return fastio.parse_tokens(path, skip_lines)
+    except NativeUnavailable:
+        pass
     with open(path, "r") as f:
         for _ in range(skip_lines):
             f.readline()
@@ -85,10 +92,19 @@ def read_dense_text(path: str) -> np.ndarray:
 def read_mtx(path: str):
     """MatrixMarket reader: scipy sparse COO for coordinate files (pattern
     entries read as 1.0, symmetric files expanded, indices 0-based), a
-    dense ndarray for array files."""
+    dense ndarray for array files.  Real and pattern coordinate files go
+    through the host library; the rest, and every file where it does not
+    build, through ``scipy.io.mmread``."""
     import scipy.io
+    import scipy.sparse
 
-    return scipy.io.mmread(path)
+    from tpuspmm_torch.native import NativeUnavailable, fastio
+
+    try:
+        shape, r, c, v = fastio.read_mtx_triplets(path)
+    except NativeUnavailable:
+        return scipy.io.mmread(path)
+    return scipy.sparse.coo_matrix((v, (r, c)), shape=shape)
 
 
 def _write_int_line(f, arr) -> None:

@@ -9,9 +9,12 @@ all-sentinel) chunk, and the chunk count is padded to a multiple of 8 with
 all-sentinel chunks attached to the last row tile with k tile 0.
 
 The tile-plan kernels (K3 tile, K4 staged, K5 C-resident) all read this
-plan.  The JAX package builds plans of 200,000 nonzeros or more in native
-C++; that code is not ported (ROADMAP), and no corpus matrix reaches the
-cut-off.
+plan.  As in the JAX package, a plan of ``NATIVE_MIN_NNZ`` nonzeros or
+more is built by the host library (``native/tileplan.cpp``, the same
+arrays); where it does not build, by numpy, and ``native.plan_builds``
+counts which.  No corpus matrix reaches the cut-off; the sparsity sweep's
+operands (419,430 nonzeros at density 0.1 of 2048 x 2048) and the pruned
+weights do.
 """
 
 from __future__ import annotations
@@ -97,6 +100,12 @@ class TilePlan:
         return start, end
 
 
+# past this many nonzeros the C++ builder (one sort and a linear walk) beats
+# numpy's argsort and gathers; below it the ctypes round trip is not worth
+# it (the JAX package's cut-off, tpuspmm/formats/tiles.py)
+NATIVE_MIN_NNZ = 200_000
+
+
 def build_tile_plan(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -109,6 +118,19 @@ def build_tile_plan(
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
     vals = np.asarray(vals, dtype=np.float32)
+    if len(rows) >= NATIVE_MIN_NNZ:
+        from tpuspmm_torch import native
+        from tpuspmm_torch.native import tileplan
+
+        try:
+            arrays = tileplan.build_tile_plan_arrays(
+                rows, cols, vals, shape, tile_m, tile_k, chunk)
+        except native.NativeUnavailable:
+            native.plan_builds["numpy"] += 1
+        else:
+            native.plan_builds["native"] += 1
+            return TilePlan(*arrays, shape=tuple(shape), tile_m=tile_m,
+                            tile_k=tile_k, chunk=chunk)
     nrt = _cdiv(shape[0], tile_m)
     nkt = _cdiv(shape[1], tile_k)
 

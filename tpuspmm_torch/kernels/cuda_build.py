@@ -1,12 +1,13 @@
 """Build a CUDA source of tpuspmm_torch/csrc with nvcc and bind it with
-ctypes.
+ctypes (``native/library.py`` builds the host sources the same way, with
+g++).
 
 A library is compiled at first use for ``sm_90a`` into
 ``build/tpuspmm_torch/`` at the repository root (git-ignored), named by the
-hash of its source and of the csrc/ headers it includes, so an edited
-source or header is rebuilt, and loaded through its plain C interface.
-ptxas reports each kernel's registers, shared memory and spills
-(``-Xptxas -v``); nvcc's report is kept beside the library
+hash of its compiler flags, its source and the headers it includes, so an
+edited source, header or flag is rebuilt, and loaded through its plain C
+interface.  ptxas reports each kernel's registers, shared memory and spills
+(``-Xptxas -v``); the compiler's report is kept beside the library
 (``CudaLibrary.build_log``).
 Nothing here runs when the module is imported: the CPU tests import it
 without a CUDA toolkit.
@@ -42,6 +43,8 @@ class CudaLibrary:
     """One source under csrc/, built into one shared library.  ``bind``
     sets the argument and result types of its C entry points."""
 
+    flags = NVCC_FLAGS
+
     def __init__(self, source_name: str, bind: Callable):
         self.source = os.path.join(CSRC, source_name)
         self._bind = bind
@@ -64,8 +67,11 @@ class CudaLibrary:
                     todo.append(dep)
         return found
 
+    def compiler(self) -> str:
+        return nvcc()
+
     def library_path(self) -> str:
-        h = hashlib.sha256()
+        h = hashlib.sha256(" ".join(self.flags).encode())
         for path in self.sources():
             with open(path, "rb") as f:
                 h.update(f.read())
@@ -74,16 +80,17 @@ class CudaLibrary:
 
     def build(self) -> str:
         """Compile unless this source's build exists; return its path.
-        Raises with nvcc's output when the build fails."""
+        Raises with the compiler's output when the build fails."""
         path = self.library_path()
         if os.path.exists(path):
             return path
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+        compiler = self.compiler()
+        res = subprocess.run([compiler, *self.flags, "-o", tmp, self.source],
                              capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source} "
+            raise RuntimeError(f"{compiler} failed on {self.source} "
                                f"({res.returncode}):\n{res.stdout}\n"
                                f"{res.stderr}")
         with open(f"{tmp}.log", "w") as f:
@@ -97,8 +104,8 @@ class CudaLibrary:
         return os.path.splitext(library)[0] + ".log"
 
     def build_log(self) -> str:
-        """nvcc's report (ptxas's registers and spills per kernel) of the
-        build of this source, built at first use."""
+        """The compiler's report (for nvcc, ptxas's registers and spills
+        per kernel) of the build of this source, built at first use."""
         with open(self._log_path(self.build())) as f:
             return f.read()
 
