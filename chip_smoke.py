@@ -10,7 +10,7 @@ Prints one JSON object per phase:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; TF32 off for the plain versions;
-2. build: compiles the three CUDA sources of tpuspmm_torch/csrc with nvcc
+2. build: compiles the four CUDA sources of tpuspmm_torch/csrc with nvcc
    and the two C++ sources of tpuspmm_torch/native with g++, one process
    each, started together; ptxas's registers and spills of
    every kernel of the three, and the tensor-core instructions (HMMA,
@@ -185,11 +185,26 @@ Prints one JSON object per phase:
    kernel's ``cudaKernelTimeMs`` beside cuSPARSE's.  Records and the
    summary go to build/sweeps/ (the whole corpus and all nine densities
    run as calls of their own, README);
-11. the kernels line (all seven kernels, with the least time the card
-   could take for the work, ``bound_ms``, the library call's time, the
-   tuned window's launches, ``tuned_launches``, the parallel
-   window's, ``parallel_launches``, and the sweeps window's,
-   ``sweeps_launches``;
+10c. tools (the reference's last tools), launch counts zeroed, in one
+   window: ``tpuspmm_torch.entry.entry()``'s ``fn`` (the raw K1 launch,
+   counted by ``PanelLaunch.launches``, not ``spmm_panel``'s) against its
+   plain version within PLAIN_TOL·max|C| and at the gate against the f64
+   oracle, timed (entry point, graph replay, plain); ``profile_variants``
+   on TOOLS_PROFILE (large_25605 w256, large_21074 w512, medium_4000,
+   2048 x 2048 at 0.1 w1024, the three small dirs): no error, every
+   admitted strategy at the gate, every hand kernel with a ``device_ms``;
+   ``hbm_control``: three records, the stream kernel (csrc/stream.cu)
+   equal to ``2 * x + 1``, every ``frac_of_nominal`` at most 1.05;
+   ``weak_scaling --devices 1`` with the tile and panel locals (one NCCL
+   rank in a process of its own) at the gate.  The tile, staged,
+   C-resident, panel and stream kernels must have launched in the window
+   (the ranks' launches come back in their records);
+11. the kernels line (all seven kernels and the stream kernel, with the
+   least time the card could take for the work, ``bound_ms``, the library
+   call's time, the tuned window's launches, ``tuned_launches``, the
+   parallel window's, ``parallel_launches``, the sweeps window's,
+   ``sweeps_launches``, and the tools window's, ``tools_launches``, K1's
+   with ``entry()``'s apart, ``entry_launches``);
    every other number in it measured in this run: floors and plan work
    stay in their phase records), the card line, and the final ok line.
 
@@ -296,6 +311,14 @@ SWEEP_DENSITIES = "0.1,0.5,0.9"
 # 16 and 32 rows, 256- and 512-deep k-tiles, several supertiles, widths
 # that are no multiple of 4 or 8 (no 16-byte rows), an f32 plan with bf16
 # B, and a matrix with no entry
+# phase 10c: profile_variants' operands (the headline, the dirs where
+# cuSPARSE led the corpus sweep, and the sparsity sweep's shape)
+TOOLS_PROFILE = (("-d", HEADLINE, "--width", "256"),
+                 ("-d", "large_21074", "--width", "512"),
+                 ("-d", "medium_4000"),
+                 ("--random", "2048x2048x0.1", "--width", "1024"),
+                 ("-d", "small_10x10"), ("-d", "small_210"),
+                 ("-d", "small_32x32"))
 STRIP_SHAPES = (
     (3000, 5000, 0.002, 16, 256, None, False, False, 77, "f32", 1),
     (3000, 5000, 0.002, 32, 128, 512, True, True, 130, "f32", 2),
@@ -769,6 +792,123 @@ def sweeps_phase(out_dir: str, gpu: str, card: str) -> dict:
     return launches
 
 
+def tools_phase(gpu: str, card: str) -> dict:
+    """Phase 10c: the reference's last tools on the card, in one launch
+    window: ``entry()``'s raw K1 launch, ``profile_variants`` on
+    TOOLS_PROFILE, ``hbm_control`` and ``weak_scaling --devices 1`` with
+    the tile and panel locals.  Returns the window's launches and the
+    entry's and stream's numbers for the kernels line."""
+    from tpuspmm_torch import entry as port_entry
+    from tpuspmm_torch.engine import report
+    from tpuspmm_torch.formats import CSR
+    from tpuspmm_torch.kernels import stream_cuda
+    from tpuspmm_torch.ops import oracle
+    from tpuspmm_torch.sweeps.common import hand_kernels
+    from tpuspmm_torch.tools import hbm_control, profile_variants, weak_scaling
+    from tpuspmm_torch.utils.compare import allclose, max_abs_err
+    from tpuspmm_torch.utils.timing import cuda_time_ms, graph_time_ms
+
+    t_phase = time.perf_counter()
+    power = card.split(",")[-1].strip()
+    counters = dict(hand_kernels(), stream=stream_cuda.stream)
+    for c in counters.values():
+        c.launches = 0
+    port_entry.PanelLaunch.launches = 0
+
+    # ---- entry(): the raw K1 launch, against plain and the oracle --------
+    fn, args = port_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = port_entry.PanelLaunch.launches
+    check(entry_launches == 1 and counters["panel"].launches == 0,
+          "entry()'s fn launches K1 once, not through spmm_panel")
+    want = fn.plain(*args)
+    err = max_abs_err(out, want)
+    scale = float(want.abs().max())
+    check(out.shape == want.shape and bool(torch.isfinite(out).all()),
+          f"entry output finite, shape {tuple(want.shape)}")
+    check(err <= PLAIN_TOL * scale,
+          f"entry |kernel - plain| {err} <= {PLAIN_TOL}*{scale}")
+    a = CSR.random(1024, 1024, density=0.10, seed=0)
+    b = np.random.default_rng(1).standard_normal((1024, 256)).astype(
+        np.float32)
+    plan = fn.plan
+    gate = allclose(out[:a.shape[0], :b.shape[1]], oracle.spmm_oracle(a, b))
+    check(gate, "entry gate vs f64 oracle")
+    nbytes = sum(t.numel() * t.element_size() for t in args) \
+        + out.numel() * 4
+    entry_stats = {
+        "max_abs_err": err, "max_abs_c": scale, "gate": gate,
+        "ms": cuda_time_ms(lambda: fn(*args)),
+        "device_ms": graph_time_ms(lambda: fn(*args)),
+        "plain_ms": cuda_time_ms(lambda: fn.plain(*args)),
+        **bound(nbytes, 2.0 * a.nnz * b.shape[1], report.hbm_gbps(gpu) * 1e9)}
+    emit("tools_entry", gpu=gpu, power_limit=power, launches=entry_launches,
+         geometry={"tm": plan.tm, "tk": plan.tk, "P": plan.panel_strips,
+                   "sm": plan.sm, "panels": plan.n_panels},
+         **entry_stats)
+    del out, want
+
+    # ---- profile_variants: device time split from host time --------------
+    runs = []
+    for argv in TOOLS_PROFILE:
+        status, stdout, err_text, secs = run_main(
+            profile_variants.main, [*argv, "--repeats", "20"])
+        line = json.loads(stdout.strip().splitlines()[-1])
+        emit("profile_variants", seconds=secs, status=status, **line)
+        check(status == 0, f"profile_variants {argv} exits 0 "
+                           f"({err_text[-1500:]})")
+        for r in line["results"]:
+            what = f"profile_variants {line['testcase']} {r['variant']}"
+            check("error" not in r, f"{what}: no error ({r.get('error')})")
+            check("inadmissible" in r or r["correct"] is True,
+                  f"{what} at the gate")
+            if r["variant"].startswith("pallas_") and "inadmissible" not in r:
+                check(r["device_ms"] is not None, f"{what} has a device_ms")
+        runs.append(line)
+
+    # ---- hbm_control: the card's measured ceilings -----------------------
+    status, stdout, err_text, secs = run_main(hbm_control.main, [])
+    hbm = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+    for rec in hbm:
+        emit("hbm_control", **rec)
+    check(status == 0 and [r["control"] for r in hbm] == [
+        "stream", "matmul_sol", "matmul_pair"],
+        f"hbm_control exits 0 with three records ({err_text[-1500:]})")
+    check(hbm[0]["equal_to_plain"], "the stream kernel equals 2 * x + 1")
+    for rec in hbm:
+        check(rec["frac_of_nominal"] <= 1.05,
+              f"{rec['control']}: frac_of_nominal {rec['frac_of_nominal']} "
+              "<= 1.05")
+
+    # ---- weak_scaling at one rank -----------------------------------------
+    weak = {}
+    for local in ("tile", "panel"):
+        status, stdout, err_text, secs = run_main(
+            weak_scaling.main, ["--devices", "1", "--local", local])
+        line = json.loads(stdout.strip().splitlines()[-1])
+        emit("weak_scaling", seconds=secs, status=status, **line)
+        check(status == 0 and len(line["scaling"]) == 1
+              and line["scaling"][0]["correct"] and line["dropped"] == [],
+              f"weak_scaling --local {local} at one rank at the gate "
+              f"({err_text[-1500:]})")
+        weak[local] = line["scaling"][0]
+
+    launches = {n: c.launches for n, c in counters.items()}
+    for rec in weak.values():  # the ranks' launches, in their processes
+        for name, count in rec["launches"].items():
+            launches[name] += count
+    launches["entry_panel"] = entry_launches
+    for name in ("tile", "staged", "cres", "panel", "stream"):
+        check(launches[name] > 0, f"{name} launched in the tools phase")
+    stream_rec = hbm[0]
+    emit("tools_phase", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return {"launches": launches, "entry": entry_stats,
+            "stream": stream_rec, "hbm": hbm, "profile": runs,
+            "weak": weak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -820,7 +960,10 @@ def main() -> int:
     t0 = time.perf_counter()
     from tpuspmm_torch.native import fastio, tileplan
 
-    libraries = (strip_cuda.LIBRARY, chunk_cuda.LIBRARY, bsr_cuda.LIBRARY)
+    from tpuspmm_torch.kernels import stream_cuda
+
+    libraries = (strip_cuda.LIBRARY, chunk_cuda.LIBRARY, bsr_cuda.LIBRARY,
+                 stream_cuda.LIBRARY)
     host_libraries = (fastio.LIBRARY, tileplan.LIBRARY)
     with ThreadPoolExecutor(len(libraries) + len(host_libraries)) as pool:
         list(pool.map(lambda lib: lib.build(), libraries + host_libraries))
@@ -839,6 +982,7 @@ def main() -> int:
     chunk_ptxas = ptxas_report(chunk_cuda.LIBRARY.build_log())
     bsr_tc, bsr_kernels = tensor_core_ops(bsr_cuda.LIBRARY.library_path())
     bsr_ptxas = ptxas_report(bsr_cuda.LIBRARY.build_log())
+    stream_ptxas = ptxas_report(stream_cuda.LIBRARY.build_log())
     chunk_occupancy = {
         f"{'bf16' if bb else 'f32'}_B_tn{128 if wide else 64}_"
         f"{'split2' if s2 else 'split'}": chunk_cuda.blocks_per_sm(bb, wide,
@@ -852,7 +996,8 @@ def main() -> int:
          strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas,
          chunk_tensor_core_sass=chunk_tc, chunk_ptxas=chunk_ptxas,
          chunk_blocks_per_sm=chunk_occupancy,
-         bsr_tensor_core_sass=bsr_tc, bsr_ptxas=bsr_ptxas)
+         bsr_tensor_core_sass=bsr_tc, bsr_ptxas=bsr_ptxas,
+         stream_ptxas=stream_ptxas)
     for name, tc_ops, kernels, report_ in (
             ("strip_spmm.cu", strip_tc, strip_kernels, strip_ptxas),
             ("chunk_spmm.cu", chunk_tc, chunk_kernels, chunk_ptxas),
@@ -869,6 +1014,9 @@ def main() -> int:
     check(bsr_tc["HGMMA"] > 0, f"K6 runs wgmma (HGMMA in its SASS: {bsr_tc})")
     check(all(r["spill_store_bytes"] == 0 for r in bsr_ptxas),
           f"no bsr_spmm.cu kernel spills ({bsr_ptxas})")
+    check(stream_ptxas and all(r["spill_store_bytes"] == 0
+                               for r in stream_ptxas),
+          f"the stream kernel builds without spills ({stream_ptxas})")
     check(min(chunk_occupancy.values()) >= 2,
           f"two tile-owner blocks fit an SM ({chunk_occupancy})")
 
@@ -2011,6 +2159,10 @@ def main() -> int:
     sweep_launches = sweeps_phase(os.path.join(REPO, "build", "sweeps"),
                                   gpu, card)
 
+    # ---- 10c. tools: entry(), profile_variants, hbm_control, weak_scaling --
+    tools = tools_phase(gpu, card)
+    tools_launches = tools["launches"]
+
     # ---- 11. kernels line, card, ok --------------------------------------
     kernels = {  # name: (entry, source, TPU kernel body it replaces)
         "panel": ("panel_strip_spmm", "strip_spmm.cu",
@@ -2040,7 +2192,12 @@ def main() -> int:
                 "launches_window": window,
                 "tuned_launches": tuned_window[name],
                 "parallel_launches": par_launches.get(name, 0),
-                "sweeps_launches": sweep_launches[name]}
+                "sweeps_launches": sweep_launches[name],
+                "tools_launches": tools_launches[name]}
+        if name == "panel":  # entry()'s raw launches, counted apart
+            line["entry_launches"] = tools_launches["entry_panel"]
+            line["entry"] = {k: tools["entry"][k] for k in (
+                "ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms")}
         if name in launches:
             line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
@@ -2096,6 +2253,7 @@ def main() -> int:
         "tuned_launches": tuned_window["bsr_stream"],
         "parallel_launches": 0,
         "sweeps_launches": sweep_launches["bsr_stream"],
+        "tools_launches": tools_launches["bsr_stream"],
         "kernel_phase_launches": bsr_window,
         "max_abs_err": max(r[t]["max_abs_err"] for r in k6_stats.values()
                            for t in ("f32", "bf16")),
@@ -2121,6 +2279,22 @@ def main() -> int:
         "cusparse_csr_ms": ka["cusparse_csr_ms"],
         "shapes": "weight (a): 4096 x 4096, 128 x 128 blocks at 10%, B "
                   f"4096 x {PRUNED_WIDTH}"})
+    st = tools["stream"]
+    lines.append({
+        "name": "stream_2x_plus_1", "route": "cuda",
+        "source": "tpuspmm_torch/csrc/stream.cu",
+        "replaces": "bench/hbm_control.py:87",
+        "note": "the memory control's y = 2x + 1 (an XLA fusion there, no "
+                "pallas_call); equal to its plain version bit for bit",
+        "launches": tools_launches["stream"],
+        "launches_window": "tools (hbm_control)",
+        "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+        "plain_ms": st["plain_ms"],
+        "bound_ms": st["bytes"] / (report.hbm_gbps(gpu) * 1e9) * 1e3,
+        "bound_by": "bytes", "library_ms": st["library_ms"],
+        "library_call": st["library_call"],
+        "frac_of_nominal": st["frac_of_nominal"],
+        "shapes": f"{st['elements']} f32"})
     print(json.dumps({"kernels": lines}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

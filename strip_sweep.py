@@ -10,8 +10,12 @@ Run from the repository root:
     python3 strip_sweep.py --profile-host
 
 Each variant is a copy of the source with some of its lines replaced
-(VARIANTS; "serving" is the source as it stands), written to and built in
-build/strip_sweep/, one nvcc each, all started together.  The serving
+(VARIANTS; "serving" is the source as it stands; "running_sums", in both
+sweeps, adds every term product straight into the running sums, as the
+routines did before their k-steps got a fresh accumulator), written to
+and built in build/strip_sweep/, one nvcc each, all started together.
+Every record also gives each variant's ``gate_ratio`` against the f64
+oracle (at most 1 where the gate passes).  The serving
 code carries no options: a patch whose text is not in the source exactly
 once makes that variant's build record an error.  Every variant runs the
 panel plan the dispatcher resolves for each case below, is held against
@@ -78,8 +82,108 @@ def const(name: str, old: int, new: int) -> tuple:
 
 # name: [(text of the source, its replacement), ...].  128-row groups run
 # 16 warps a block, so one block an SM keeps their registers at 128
+# the products of a k-step with more than one term pair: into a fresh
+# accumulator, added into the sums in f32 (serving), or each straight
+# into the running sums, as the routines once did (the "running_sums"
+# control, which misses the gate where C cancels: the tensor cores' sums
+# are not rounded to nearest)
+STRIP_FRESH = """      // A's terms one m16 tile at a time (an f32 A's three terms of all
+      // WMT tiles at once would leave no registers to overlap products)
+#pragma unroll
+      for (int mt = 0; mt < WMT; ++mt) {
+        if (!((mask >> mt) & 1)) continue;  // no strip in these 16 rows
+        uint32_t af[A_BF16 ? 1 : 3][4];  // [term][register]
+        if constexpr (A_BF16) {
+          tc::ldmatrix_x4(af[0], sa + (mt * 16 + lane % 16) * T::A_LD + ks +
+                                     (lane / 16) * 8);
+        } else {
+          const float* r0 = reinterpret_cast<const float*>(sa) +
+                            (mt * 16 + gid) * T::A_LD + ks + 2 * t4;
+          const float2 x0 = *reinterpret_cast<const float2*>(r0);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(r0 + 8 * T::A_LD);
+          const float2 x2 = *reinterpret_cast<const float2*>(r0 + 8);
+          const float2 x3 =
+              *reinterpret_cast<const float2*>(r0 + 8 * T::A_LD + 8);
+          float v[8] = {x0.x, x0.y, x1.x, x1.y, x2.x, x2.y, x3.x, x3.y};
+#pragma unroll
+          for (int ia = 0; ia < 3; ++ia)
+            if (ia < na)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                af[ia][q] = tc::bf16x2_term(v[2 * q], v[2 * q + 1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < WNT; ++nt) {
+          if (nprod == 1) {  // one product a pair: straight into the sums
+            tc::mma_bf16(acc[mt][nt], af[0], bf[0][nt][0], bf[0][nt][1]);
+            continue;
+          }
+          // several term products: this k-step's into a fresh accumulator,
+          // smallest (i + j largest) first and hi·hi last, then one
+          // rounded f32 add into the sums.  The tensor cores' sums are not
+          // rounded to nearest: each product added into the running sums
+          // would cost a biased error of the sums' own size, ~6·K/16 of
+          // them a value, which misses the gate where C cancels (entry()'s
+          // operand); this way a k-step costs one, of its own partial's size
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int d = 4; d >= 0; --d)
+#pragma unroll
+            for (int ia = 0; ia < (A_BF16 ? 1 : 3); ++ia) {
+              const int ib = d - ia;
+              if (ib >= 0 && ib < (B_BF16 ? 1 : 3) && ia < na && ib < nb &&
+                  d < nprod)
+                tc::mma_bf16(part, af[ia], bf[ib][nt][0], bf[ib][nt][1]);
+            }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
+        }
+      }
+"""
+STRIP_RUNNING = """      uint32_t af[A_BF16 ? 1 : 3][WMT][4];  // [term][m16 tile][register]
+#pragma unroll
+      for (int mt = 0; mt < WMT; ++mt) {
+        if (!((mask >> mt) & 1)) continue;  // no strip in these 16 rows
+        if constexpr (A_BF16) {
+          tc::ldmatrix_x4(af[0][mt], sa + (mt * 16 + lane % 16) * T::A_LD +
+                                         ks + (lane / 16) * 8);
+        } else {
+          const float* r0 = reinterpret_cast<const float*>(sa) +
+                            (mt * 16 + gid) * T::A_LD + ks + 2 * t4;
+          const float2 x0 = *reinterpret_cast<const float2*>(r0);
+          const float2 x1 =
+              *reinterpret_cast<const float2*>(r0 + 8 * T::A_LD);
+          const float2 x2 = *reinterpret_cast<const float2*>(r0 + 8);
+          const float2 x3 =
+              *reinterpret_cast<const float2*>(r0 + 8 * T::A_LD + 8);
+          float v[8] = {x0.x, x0.y, x1.x, x1.y, x2.x, x2.y, x3.x, x3.y};
+#pragma unroll
+          for (int ia = 0; ia < 3; ++ia)
+            if (ia < na)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                af[ia][mt][q] = tc::bf16x2_term(v[2 * q], v[2 * q + 1]);
+        }
+      }
+      // term pairs outermost: consecutive products go to different
+      // accumulators, so no product waits on the one before it
+#pragma unroll
+      for (int ia = 0; ia < (A_BF16 ? 1 : 3); ++ia)
+#pragma unroll
+        for (int ib = 0; ib < (B_BF16 ? 1 : 3); ++ib)
+          if (ia < na && ib < nb && ia + ib < nprod)
+#pragma unroll
+            for (int mt = 0; mt < WMT; ++mt)
+              if ((mask >> mt) & 1)
+#pragma unroll
+                for (int nt = 0; nt < WNT; ++nt)
+                  tc::mma_bf16(acc[mt][nt], af[ia][mt], bf[ib][nt][0],
+                               bf[ib][nt][1]);
+"""
 VARIANTS = {
     "serving": [],
+    "running_sums": [(STRIP_FRESH, STRIP_RUNNING)],
     "tn128": [(NARROW, "const bool narrow = false;")],
     "tn64": [(NARROW, "const bool narrow = true;")],
     "group_order": [("if (unit >= sms &&", "if (false &&"),
@@ -108,8 +212,63 @@ CHUNK_LOADS_INTERLEAVED = """#pragma unroll
         if (j + u < cnt)
           load_b<VEC>(raw[u], b + (size_t)kr[u] * n, col, n, vec);
       }"""
+# the dense tiles' products, as STRIP_FRESH / STRIP_RUNNING
+CHUNK_FRESH_BF16 = """#pragma unroll
+            for (int nt = 0; nt < TN / 8; ++nt) {
+              uint32_t r[2];
+              tc::ldmatrix_x2_trans(r, sb + (ks + lane % 16) * G::B_LD +
+                                           nt * 8);
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int ia = 2; ia >= 0; --ia)  // smallest term first
+                tc::mma_bf16(part, af[ia], r[0], r[1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
+            }
+"""
+CHUNK_RUNNING_BF16 = """#pragma unroll
+            for (int p = 0; p < TN / 16; ++p) {
+              uint32_t r[4];
+              tc::ldmatrix_x4_trans(r, sb + (ks + lane % 16) * G::B_LD +
+                                           p * 16 + (lane / 16) * 8);
+#pragma unroll
+              for (int ia = 0; ia < 3; ++ia) {
+                tc::mma_bf16(acc[2 * p], af[ia], r[0], r[1]);
+                tc::mma_bf16(acc[2 * p + 1], af[ia], r[2], r[3]);
+              }
+            }
+"""
+CHUNK_FRESH_F32 = """              uint32_t bt[3][2];  // B's terms, in order
+#pragma unroll
+              for (int ib = 0; ib < 3; ++ib) {
+                bt[ib][0] = tc::bf16x2_term(v[0], v[1]);
+                bt[ib][1] = tc::bf16x2_term(v[2], v[3]);
+              }
+              // products (i, j) with i + j < 3, smallest first
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int d = 2; d >= 0; --d)
+#pragma unroll
+                for (int ia = 0; ia <= d; ++ia)
+                  tc::mma_bf16(part, af[ia], bt[d - ia][0], bt[d - ia][1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
+"""
+CHUNK_RUNNING_F32 = """              // B's terms in order, each used as it is made: products
+              // (i, j) with i + j < 3
+#pragma unroll
+              for (int ib = 0; ib < 3; ++ib) {
+                const uint32_t b0 = tc::bf16x2_term(v[0], v[1]);
+                const uint32_t b1 = tc::bf16x2_term(v[2], v[3]);
+#pragma unroll
+                for (int ia = 0; ia < 3 - ib; ++ia)
+                  tc::mma_bf16(acc[nt], af[ia], b0, b1);
+              }
+"""
 CHUNK_VARIANTS = {
     "serving": ([], None, 128),
+    "running_sums": ([(CHUNK_FRESH_BF16, CHUNK_RUNNING_BF16),
+                      (CHUNK_FRESH_F32, CHUNK_RUNNING_F32)], None, 128),
     "gather_only": ([], math.inf, 128),
     "dense_only": ([], 0.0, 128),
     "dense_1x": ([], 1.0, 128),
@@ -133,8 +292,10 @@ CHUNK_VARIANTS = {
 # is chip_smoke.py's pruned weight (a) as CSR, B drawn as there
 CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
                ("pruned_a", 512, ("f32", "bf16")),
+               ("pruned_a", 1024, ("f32", "bf16")),
                ("medium_4096", None, ("f32",)),
-               ("medium_2048", None, ("f32",)))
+               ("medium_2048", None, ("f32",)),
+               ("random_2048", 1024, ("f32", "bf16")))
 # name: [(text of bsr_spmm.cu, its replacement), ...]
 BSR_VARIANTS = {
     "serving": [],
@@ -160,7 +321,8 @@ BSR_CASES = (("a", 4096, 4096, (128, 128), 0.1, 0, 512),
 # (corpus dir, B width or None for the on-disk width, B dtypes)
 CASES = (("large_25605", 256, ("f32", "bf16")),
          ("large_21074", 256, ("f32", "bf16")),
-         ("medium_4096", None, ("f32",)))
+         ("medium_4096", None, ("f32",)),
+         ("entry", 256, ("f32",)))
 PLAIN_TOL = 1e-4
 K6_TOL = 2e-6
 
@@ -243,8 +405,11 @@ def profile_host() -> int:
     return 0
 
 
-def chunk_operand(case: str, width):
-    """(CSR container, f32 B as numpy) of a CHUNK_CASES operand."""
+def operand(case: str, width):
+    """(CSR container, f32 B as numpy) of a CASES or CHUNK_CASES operand:
+    a corpus dir, chip_smoke.py's pruned weight (a) as CSR ("pruned_a"),
+    ``tpuspmm_torch.entry``'s operand ("entry", ±100 values) or
+    profile_variants' ``--random 2048x2048x0.1`` ("random_2048")."""
     from tpuspmm_torch.data import data_dir
     from tpuspmm_torch.formats import BSR, CSR, convert
 
@@ -252,8 +417,25 @@ def chunk_operand(case: str, width):
         w = BSR.random_blocks(4096, 4096, (128, 128), 0.1, 0)
         b = np.random.default_rng(0).standard_normal((4096, width)) * 0.05
         return CSR.from_scipy(w.to_scipy().tocsr()), b.astype(np.float32)
+    if case == "entry":
+        b = np.random.default_rng(1).standard_normal((1024, width))
+        return CSR.random(1024, 1024, 0.10, seed=0), b.astype(np.float32)
+    if case == "random_2048":
+        b = np.random.default_rng(1).uniform(-1, 1, (2048, width))
+        return CSR.random(2048, 2048, 0.1, seed=0), b.astype(np.float32)
     return (convert.load_sparse(data_dir(case), "csr"),
             convert.load_dense(data_dir(case), width=width).data)
+
+
+def gate_ratio(result, a, b) -> float:
+    """max |C - oracle| / (1e-3 + 1e-2·|oracle|) against the f64 oracle of
+    A and B as the kernel read it: at most 1 where the gate passes."""
+    from tpuspmm_torch.ops import oracle
+
+    ref = oracle.spmm_scipy_oracle(a, b.float().cpu().numpy())
+    got = result.double().cpu().numpy()
+    return float(np.max(np.abs(got - ref) / (1e-3 + 1e-2 * np.abs(ref)),
+                        initial=0.0))
 
 
 def chunk_sweep(names: list) -> int:
@@ -280,7 +462,7 @@ def chunk_sweep(names: list) -> int:
             chunk_cuda._bind(libs[rec["name"]])
     dev = torch.device("cuda")
     for case, width, dtypes in CHUNK_CASES:
-        a, b_np = chunk_operand(case, width)
+        a, b_np = operand(case, width)
         b32 = torch.from_numpy(b_np).to(dev)
 
         def plan_of(name):
@@ -313,7 +495,7 @@ def chunk_sweep(names: list) -> int:
             rec = {"case": case, "b": tag, "width": int(b.shape[1]),
                    "nnz": int(a.nnz), "tiles": len(serving["tile_nnz"]),
                    "dense_tiles": int(serving["tile_dense"].sum()),
-                   "err": {}, "ms": {}, "call_ms": {}}
+                   "err": {}, "gate_ratio": {}, "ms": {}, "call_ms": {}}
             plains = {}
             for name in libs:
                 tm = CHUNK_VARIANTS[name][2]
@@ -324,6 +506,7 @@ def chunk_sweep(names: list) -> int:
                 torch.cuda.synchronize()
                 rec["err"][name] = (max_abs_err(got, plains[tm])
                                     / float(plains[tm].abs().max()))
+                rec["gate_ratio"][name] = gate_ratio(got, a, b_slice)
             graphs = {}
             for name in libs:
                 run(name, b)  # the index on the device before capture
@@ -417,8 +600,6 @@ def main() -> int:
         print("strip_sweep: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from tpuspmm_torch.data import data_dir
-    from tpuspmm_torch.formats import convert
     from tpuspmm_torch.kernels import cuda_build, panel_spmm, strip_cuda
     from tpuspmm_torch.utils.compare import max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
@@ -463,9 +644,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     for case, width, dtypes in CASES:
-        a = convert.load_sparse(data_dir(case), "csr")
-        dense = convert.load_dense(data_dir(case), width=width)
-        n = dense.data.shape[1]
+        a, b_np = operand(case, width)
+        n = b_np.shape[1]
         geom = panel_spmm.resolve_panel_geometry(
             a, -(-n // 128) * 128, plan_bytes_cap=panel_spmm.PLAN_BYTES_CAP,
             device=dev)
@@ -475,7 +655,7 @@ def main() -> int:
             arrs[gr] = dict(plan.device_arrays(dev))
             index = panel_spmm.group_arrays(plan, gr // plan.tm)
             arrs[gr].update({k: v.to(dev) for k, v in index.items()})
-        b32 = torch.from_numpy(dense.data).to(dev)
+        b32 = torch.from_numpy(b_np).to(dev)
         for tag in dtypes:
             b = b32 if tag == "f32" else b32.to(torch.bfloat16)
             want = panel_spmm.panel_spmm_plain(plan, b)
@@ -495,11 +675,13 @@ def main() -> int:
             rec = {"case": case, "b": tag, "width": n,
                    "tm": plan.tm, "tk": plan.tk,
                    "plan_bf16": plan.a_dense.dtype == np.uint16,
-                   "max_abs_c": scale, "ms": {}, "err": {}}
+                   "max_abs_c": scale, "ms": {}, "err": {},
+                   "gate_ratio": {}}
             for name in libs:
                 got = run(name)
                 torch.cuda.synchronize()
                 rec["err"][name] = max_abs_err(got, want)
+                rec["gate_ratio"][name] = gate_ratio(got, a, b)
             # device time: each variant's launch captured in a CUDA graph
             # and replayed, so the wrapper's host work does not show
             graphs = {}

@@ -38,8 +38,12 @@
 //      bf16 mma.sync m16n8k16 on its 16 rows with f32 accumulators in
 //      registers, f32 values split into bf16 terms in registers
 //      (tc::bf16x2_term): A 3 terms, B 3 (f32) or 1 (bf16), products (i, j)
-//      with i + j < 3 -- the strip routine's ladder (strip_spmm.cu).  The
-//      sums go to shared memory, each warp its own rows.
+//      with i + j < 3 -- the strip routine's ladder (strip_spmm.cu).  A
+//      k-step's products go into a fresh accumulator, smallest first, and
+//      are then added into the sums in f32: the tensor cores do not round
+//      their sums to nearest, and the running sums would take a biased
+//      error of their own size from every product.  The sums go to shared
+//      memory, each warp its own rows.
 //   2. Sparse nonzeros: the warp's 16 rows are one contiguous range of
 //      the CSR, walked as one stream: a lane holds TN / 32 columns of the
 //      current row in registers (starting from its dense sum), the lanes
@@ -315,15 +319,16 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
           }
           if constexpr (B_BF16) {
 #pragma unroll
-            for (int p = 0; p < TN / 16; ++p) {
-              uint32_t r[4];
-              tc::ldmatrix_x4_trans(r, sb + (ks + lane % 16) * G::B_LD +
-                                           p * 16 + (lane / 16) * 8);
+            for (int nt = 0; nt < TN / 8; ++nt) {
+              uint32_t r[2];
+              tc::ldmatrix_x2_trans(r, sb + (ks + lane % 16) * G::B_LD +
+                                           nt * 8);
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-              for (int ia = 0; ia < 3; ++ia) {
-                tc::mma_bf16(acc[2 * p], af[ia], r[0], r[1]);
-                tc::mma_bf16(acc[2 * p + 1], af[ia], r[2], r[3]);
-              }
+              for (int ia = 2; ia >= 0; --ia)  // smallest term first
+                tc::mma_bf16(part, af[ia], r[0], r[1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
             }
           } else {
 #pragma unroll
@@ -334,16 +339,21 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
                             c[(ks + 2 * t4 + 1) * G::B_LD],
                             c[(ks + 2 * t4 + 8) * G::B_LD],
                             c[(ks + 2 * t4 + 9) * G::B_LD]};
-              // B's terms in order, each used as it is made: products
-              // (i, j) with i + j < 3
+              uint32_t bt[3][2];  // B's terms, in order
 #pragma unroll
               for (int ib = 0; ib < 3; ++ib) {
-                const uint32_t b0 = tc::bf16x2_term(v[0], v[1]);
-                const uint32_t b1 = tc::bf16x2_term(v[2], v[3]);
-#pragma unroll
-                for (int ia = 0; ia < 3 - ib; ++ia)
-                  tc::mma_bf16(acc[nt], af[ia], b0, b1);
+                bt[ib][0] = tc::bf16x2_term(v[0], v[1]);
+                bt[ib][1] = tc::bf16x2_term(v[2], v[3]);
               }
+              // products (i, j) with i + j < 3, smallest first
+              float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int d = 2; d >= 0; --d)
+#pragma unroll
+                for (int ia = 0; ia <= d; ++ia)
+                  tc::mma_bf16(part, af[ia], bt[d - ia][0], bt[d - ia][1]);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
             }
           }
         }

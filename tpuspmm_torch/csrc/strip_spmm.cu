@@ -75,9 +75,11 @@
 // lo·hi).  That is panel_matmul's ladder (kernels/panel_spmm.py) term for
 // term, but for f32 x f32 at "highest", which panel_matmul runs as one f32
 // product and this routine as 6 bf16 products (error ~2^-24 relative, well
-// inside 1e-4·max|C|).  Each bf16 product is exact; sums are f32 on the
-// tensor cores, so "split2" holds 2^-20·max|C| against its plain version
-// on this routine.
+// inside 1e-4·max|C|).  Each bf16 product is exact.  The tensor cores do
+// not round their f32 sums to nearest, so with more than one product a
+// pair a k-step's products go into a fresh accumulator, smallest first,
+// which is then added into the sums in f32 (see compute()); "split2"
+// holds 2^-20·max|C| against its plain version on this routine.
 //
 // Left for later: wgmma; cluster multicast of B tiles to the groups that
 // share a k-tile; persistent blocks balancing groups of unequal length; a
@@ -327,13 +329,15 @@ group_owner_kernel(const TA* __restrict__ a_dense,
           }
         }
       }
-      uint32_t af[A_BF16 ? 1 : 3][WMT][4];  // [term][m16 tile][register]
+      // A's terms one m16 tile at a time (an f32 A's three terms of all
+      // WMT tiles at once would leave no registers to overlap products)
 #pragma unroll
       for (int mt = 0; mt < WMT; ++mt) {
         if (!((mask >> mt) & 1)) continue;  // no strip in these 16 rows
+        uint32_t af[A_BF16 ? 1 : 3][4];  // [term][register]
         if constexpr (A_BF16) {
-          tc::ldmatrix_x4(af[0][mt], sa + (mt * 16 + lane % 16) * T::A_LD +
-                                         ks + (lane / 16) * 8);
+          tc::ldmatrix_x4(af[0], sa + (mt * 16 + lane % 16) * T::A_LD + ks +
+                                     (lane / 16) * 8);
         } else {
           const float* r0 = reinterpret_cast<const float*>(sa) +
                             (mt * 16 + gid) * T::A_LD + ks + 2 * t4;
@@ -349,23 +353,35 @@ group_owner_kernel(const TA* __restrict__ a_dense,
             if (ia < na)
 #pragma unroll
               for (int q = 0; q < 4; ++q)
-                af[ia][mt][q] = tc::bf16x2_term(v[2 * q], v[2 * q + 1]);
+                af[ia][q] = tc::bf16x2_term(v[2 * q], v[2 * q + 1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < WNT; ++nt) {
+          if (nprod == 1) {  // one product a pair: straight into the sums
+            tc::mma_bf16(acc[mt][nt], af[0], bf[0][nt][0], bf[0][nt][1]);
+            continue;
+          }
+          // several term products: this k-step's into a fresh accumulator,
+          // smallest (i + j largest) first and hi·hi last, then one
+          // rounded f32 add into the sums.  The tensor cores' sums are not
+          // rounded to nearest: each product added into the running sums
+          // would cost a biased error of the sums' own size, ~6·K/16 of
+          // them a value, which misses the gate where C cancels (entry()'s
+          // operand); this way a k-step costs one, of its own partial's size
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int d = 4; d >= 0; --d)
+#pragma unroll
+            for (int ia = 0; ia < (A_BF16 ? 1 : 3); ++ia) {
+              const int ib = d - ia;
+              if (ib >= 0 && ib < (B_BF16 ? 1 : 3) && ia < na && ib < nb &&
+                  d < nprod)
+                tc::mma_bf16(part, af[ia], bf[ib][nt][0], bf[ib][nt][1]);
+            }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += part[q];
         }
       }
-      // term pairs outermost: consecutive products go to different
-      // accumulators, so no product waits on the one before it
-#pragma unroll
-      for (int ia = 0; ia < (A_BF16 ? 1 : 3); ++ia)
-#pragma unroll
-        for (int ib = 0; ib < (B_BF16 ? 1 : 3); ++ib)
-          if (ia < na && ib < nb && ia + ib < nprod)
-#pragma unroll
-            for (int mt = 0; mt < WMT; ++mt)
-              if ((mask >> mt) & 1)
-#pragma unroll
-                for (int nt = 0; nt < WNT; ++nt)
-                  tc::mma_bf16(acc[mt][nt], af[ia][mt], bf[ib][nt][0],
-                               bf[ib][nt][1]);
     }
   };
 

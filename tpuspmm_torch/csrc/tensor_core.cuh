@@ -63,6 +63,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
+// ldmatrix_x4_trans's first two matrices: one n8 tile's B fragment (its
+// rows' addresses from lanes 0-15)
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
 // d += a @ b on the tensor cores: bf16 operands, f32 accumulators.  Not
 // volatile: it touches registers only, so the compiler may interleave
 // independent products

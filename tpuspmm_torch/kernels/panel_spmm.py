@@ -867,13 +867,22 @@ def slab_rows(st, offs, sm: int, tm: int) -> torch.Tensor:
 
 def panel_spmm_plain(plan: PanelPlan, b: torch.Tensor,
                      mode: str = "highest") -> torch.Tensor:
-    """Plain PyTorch version of the panel kernel on b's device: per panel,
-    a batched product of the stacked strips with the gathered B tiles
-    through :func:`panel_matmul`, added into the slab by ``offs``
-    (``index_add_``), then :func:`finish_panel_output`."""
-    mode = normalize_panel_mode(mode)
+    """Plain PyTorch version of the panel kernel on b's device:
+    :func:`panel_slab_plain` over the plan's arrays, then
+    :func:`finish_panel_output`."""
     arrs = plan.device_arrays(b.device)
-    m, _ = plan.shape
+    return finish_panel_output(panel_slab_plain(plan, arrs, b, mode), plan,
+                               arrs, int(b.shape[1]))
+
+
+def panel_slab_plain(plan: PanelPlan, arrs: dict, b: torch.Tensor,
+                     mode: str = "highest") -> torch.Tensor:
+    """The panel product in the slab layout (n_st·(sm+tm) rows,
+    round_up(N, 128) columns) from the plan arrays in ``arrs`` (kt, st,
+    offs, a_dense on b's device): per panel, a batched product of the
+    stacked strips with the gathered B tiles through :func:`panel_matmul`,
+    added into the slab by ``offs`` (``index_add_``)."""
+    mode = normalize_panel_mode(mode)
     n = int(b.shape[1])
     n_pad = round_up(n, 128)
     P, tm, tk = plan.panel_strips, plan.tm, plan.tk
@@ -890,7 +899,7 @@ def panel_spmm_plain(plan: PanelPlan, b: torch.Tensor,
                            mode)
         out.index_add_(0, rows[p0 * P * tm:p1 * P * tm],
                        acc.reshape(-1, n_pad))
-    return finish_panel_output(out, plan, arrs, n)
+    return out
 
 
 def finish_panel_output(out: torch.Tensor, plan, arrs: dict,

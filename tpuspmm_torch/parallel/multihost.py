@@ -20,7 +20,10 @@ serves only a caller that asks for the CPU (``device="cpu"``).
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+import subprocess
+import sys
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -105,3 +108,39 @@ def process_info() -> dict:
         "local_devices": int(os.environ.get("LOCAL_WORLD_SIZE", 1)),
         "global_devices": dist.get_world_size(),
     }
+
+
+def run_ranks(argv_of_rank: Callable[[int], list], world: int,
+              timeout: float) -> list:
+    """Start ``world`` local processes, ``python *argv_of_rank(r)`` for
+    rank r (with this package's root on PYTHONPATH and one OpenMP thread
+    each), and wait for all: their output, in rank order.  If one fails
+    or ``timeout`` seconds pass, every rank still running is stopped and
+    this raises, so none is left waiting on a collective."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH", "")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=root + (os.pathsep + path if path else ""))
+    procs = [subprocess.Popen([sys.executable, *argv_of_rank(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.returncode not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        r = bad[0]
+        raise RuntimeError(f"rank {r} of {world} failed (returncode "
+                           f"{procs[r].returncode}):\n{logs[r][-3000:]}")
+    return logs

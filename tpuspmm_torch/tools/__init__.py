@@ -13,5 +13,9 @@ tools' for the same inputs and seed):
 
 Measurement tools: the panel-geometry ablation and the cost model's fit
 (``ablate_panel``, ``fit_panel_model``; counterparts of
-``bench/ablate_panel.py`` and ``bench/fit_panel_model.py``).
+``bench/ablate_panel.py`` and ``bench/fit_panel_model.py``); per-strategy
+device and host times (``profile_variants``), the card's measured memory
+ceilings (``hbm_control``) and weak scaling over ranks
+(``weak_scaling``), the counterparts of the ``bench/`` scripts of the
+same names.
 """

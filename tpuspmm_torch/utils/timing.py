@@ -59,8 +59,14 @@ def graph_time_ms(fn: Callable, iters: int = 20) -> float:
     replayed.  ``fn`` must have run once already (its plans and device
     arrays built: a capture allocates nothing it keeps)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    stream = torch.cuda.current_stream()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        # a capture that fails (a call that synchronises, say) raises
+        # from the graph's exit before it leaves its capture stream
+        torch.cuda.set_stream(stream)
     torch.cuda.synchronize()
     return cuda_time_ms(graph.replay, iters=iters)
 
