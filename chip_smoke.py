@@ -16,7 +16,8 @@ Prints one JSON object per phase:
    every kernel of the three, and the tensor-core instructions (HMMA,
    HGMMA) in their SASS (cuobjdump), which must not be zero (K6: HGMMA,
    wgmma); no tile-owner or K6 kernel may spill, and the occupancy
-   calculator must fit two tile-owner blocks an SM;
+   calculator must fit two tile-owner blocks an SM and at least one
+   C-resident cluster on the card (its count, per build, in the record);
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
    pair kernels' entry points against their plain PyTorch versions on the
    same plan at "highest" and "split2", the gate against the f64 oracle
@@ -34,19 +35,29 @@ Prints one JSON object per phase:
 4. tile kernels: launch counts of the tile-plan kernels zeroed, then on
    each of TILE_OPERANDS (large_25605 w256 at 128 x 128 and at 64 x 256
    tiles, pruned weight (a) as CSR at w512 and w1024, medium_4096 and
-   medium_2048 at their on-disk widths, and large_25605 and weight (a)
-   at widths 77 and 130) K3 tile, K4 staged, K5a C-resident and K5b
+   medium_2048 at their on-disk widths, large_25605 and weight (a) at
+   widths 77 and 130, and the 2048 x 2048 operand at density 0.1, w1024,
+   every tile dense) K3 tile, K4 staged, K5a C-resident and K5b
    C-resident k-loop: two launches at "split", bit-identical, at the
    gate against the f64 oracle, K4's, K5a's and K5b's equal to K3's bit
-   for bit (one tile-owner routine over one tile index on the card);
+   for bit (one tile index on the card: K3 and K4 on the owner routine,
+   K5a and K5b on its cluster launch); K5a's and K5b's records carry the
+   cluster (``cluster``, ``clusters``), how B's dense chunks were staged
+   (``b_copy``), the multicast issues read from the device counter,
+   which must equal the schedule's, and the B bytes the owner routine and
+   the cluster read (``b_panel_bytes``, from the schedule); wherever a
+   multicast ran and members share a k-tile the cluster must stage fewer
+   chunks than the owners;
    every launch at full width, its columns (the first 128 where B is
    wider than 256) against the plain versions on the same columns at
    "split" and "split2"; every build of the routine (64 or 128 columns,
    dense tiles or none, f32 or bf16 B) must be among those held; times
    at full width (entry point, and graph-replayed device time), plain
    times at the headline; per operand the plan's chunks, tiles, dense
-   tiles, sentinel shares, slabs, residency, the column tile, bound and
-   the cuSPARSE time.  K5b's count is read here: no engine variant
+   tiles, sentinel shares, slabs, residency, the column tile, bound, the
+   dense tiles' tensor-core floor at the bf16 rate, and the cuSPARSE time
+   and, where A fits 2^26 values, the dense f32 product's (cuBLAS).
+   K5b's count is read here: no engine variant
    reaches it, as in the JAX package.
    In phases 3 and 4 a "split2" result is held to SPLIT2_TOL·max|C|, and
    with an f32 operand the f32-tier output must differ from the split2
@@ -206,7 +217,9 @@ Prints one JSON object per phase:
    ``sweeps_launches``, and the tools window's, ``tools_launches``, K1's
    with ``entry()``'s apart, ``entry_launches``);
    every other number in it measured in this run: floors and plan work
-   stay in their phase records), the card line, and the final ok line.
+   stay in their phase records; the tile family's operands also carry
+   their bound at the stream rate ``hbm_control`` measured in phase 10c),
+   the card line, and the final ok line.
 
 Any failed phase raises, and the script exits non-zero.  It exits
 non-zero without a result when no CUDA device is present or when the
@@ -268,7 +281,10 @@ PRUNED_WIDTH = 512
 # cores (w512 gives 128 blocks, fewer than the SMs: 64 columns).  Widths
 # 77 and 130 have no 16-byte B rows (the dense path stages B with plain
 # stores) and 77 no vector rows at all; 130 on the 64-row plan takes the
-# wide build with scalar loads and stores
+# wide build with scalar loads and stores.  "random_2048" is the sparsity
+# sweep's 2048 x 2048 at density 0.1 as profile_variants draws it (values
+# ±100, B U(-1, 1)) at w1024: every 128 x 128 tile dense, each k-tile's B
+# panel shared by all 16 row tiles (the cluster launch's multicast)
 TILE_OPERANDS = ((HEADLINE, WIDTH, ("f32", "bf16"), 128, 128),
                  (HEADLINE, WIDTH, ("f32",), 64, 256),
                  ("pruned_a", PRUNED_WIDTH, ("f32", "bf16"), 128, 128),
@@ -278,7 +294,8 @@ TILE_OPERANDS = ((HEADLINE, WIDTH, ("f32", "bf16"), 128, 128),
                  (HEADLINE, 77, ("f32", "bf16"), 128, 128),
                  (HEADLINE, 130, ("f32", "bf16"), 64, 256),
                  ("pruned_a", 77, ("f32", "bf16"), 128, 128),
-                 ("pruned_a", 130, ("f32", "bf16"), 128, 128))
+                 ("pruned_a", 130, ("f32", "bf16"), 128, 128),
+                 ("random_2048", 1024, ("f32", "bf16"), 128, 128))
 PRUNED_DIR = os.path.join(REPO, "build", "pruned_llm_b128")
 # the autotuner's ranking and geometry caches, for every phase (nothing is
 # written into the home directory), emptied before the first
@@ -989,6 +1006,14 @@ def main() -> int:
                                                                   s2)
         for bb in (False, True) for wide in (False, True)
         for s2 in (False, True)}
+    # the C-resident cluster launch: clusters of chunk_cuda.CLUSTER blocks
+    # the card holds at once (cudaOccupancyMaxActiveClusters)
+    cluster_occupancy = {
+        f"{'bf16' if bb else 'f32'}_B_tn{128 if wide else 64}_"
+        f"{'split2' if s2 else 'split'}": chunk_cuda.max_active_clusters(
+            bb, wide, s2)
+        for bb in (False, True) for wide in (False, True)
+        for s2 in (False, True)}
     emit("build", sources=[os.path.relpath(lib.source, REPO)
                            for lib in libraries + host_libraries],
          seconds=time.perf_counter() - t0,
@@ -996,6 +1021,8 @@ def main() -> int:
          strip_tensor_core_sass=strip_tc, strip_ptxas=strip_ptxas,
          chunk_tensor_core_sass=chunk_tc, chunk_ptxas=chunk_ptxas,
          chunk_blocks_per_sm=chunk_occupancy,
+         cres_cluster=chunk_cuda.CLUSTER,
+         cres_max_active_clusters=cluster_occupancy,
          bsr_tensor_core_sass=bsr_tc, bsr_ptxas=bsr_ptxas,
          stream_ptxas=stream_ptxas)
     for name, tc_ops, kernels, report_ in (
@@ -1019,6 +1046,9 @@ def main() -> int:
           f"the stream kernel builds without spills ({stream_ptxas})")
     check(min(chunk_occupancy.values()) >= 2,
           f"two tile-owner blocks fit an SM ({chunk_occupancy})")
+    check(min(cluster_occupancy.values()) >= 1,
+          f"a cluster of {chunk_cuda.CLUSTER} C-resident blocks fits the "
+          f"card ({cluster_occupancy})")
 
     def load(name: str):
         d = data_dir(name)
@@ -1231,14 +1261,17 @@ def main() -> int:
                    lambda p, b, m: csr_vmem.staged_spmm_plain(
                        p, b, *csr_vmem.slab_geometry(p, b.device), m)),
         "cres": (cres_spmm.spmm_cres,
-                 lambda p, b, m: cres_spmm.spmm_cres(p, b, mode=m),
+                 lambda p, b, m, **kw: cres_spmm.spmm_cres(p, b, mode=m,
+                                                           **kw),
                  lambda p, b, m: cres_spmm.cres_spmm_plain(p, b, m,
                                                            "block8")),
         "cres_kloop": (cres_spmm.spmm_cres_kloop,
-                       lambda p, b, m: cres_spmm.spmm_cres_kloop(p, b, m),
+                       lambda p, b, m, **kw: cres_spmm.spmm_cres_kloop(
+                           p, b, m, **kw),
                        lambda p, b, m: cres_spmm.cres_spmm_plain(p, b, m,
                                                                  "kloop")),
     }
+    clustered = ("cres", "cres_kloop")  # the cluster launch
     for counter, *_ in tile_entries.values():
         counter.launches = 0
     hbm = report.hbm_gbps(gpu) * 1e9
@@ -1253,7 +1286,8 @@ def main() -> int:
     def tile_operand(name, width):
         """(CSR container, f32 B on the card, f64 oracle of f32 B).  B of
         weight (a) is pb32's first columns, or drawn as it is; the
-        headline's B is b32's first columns."""
+        headline's B is b32's first columns; the 2048 x 2048 operand and
+        its B are drawn as profile_variants' ``--random``."""
         if name == "pruned_a":
             ob = (pb32[:, :width].contiguous() if width <= PRUNED_WIDTH
                   else torch.from_numpy((np.random.default_rng(0)
@@ -1261,6 +1295,11 @@ def main() -> int:
                                          * 0.05).astype(np.float32)).to(dev))
             return (pruned_csr, ob,
                     oracle.spmm_scipy_oracle(pruned_csr, ob.cpu().numpy()))
+        if name == "random_2048":
+            ca = CSR.random(2048, 2048, 0.1, seed=0)
+            ob = torch.from_numpy(np.random.default_rng(1).uniform(
+                -1, 1, (2048, width)).astype(np.float32)).to(dev)
+            return ca, ob, oracle.spmm_scipy_oracle(ca, ob.cpu().numpy())
         if name == HEADLINE:
             check(width <= b32.shape[1], f"{HEADLINE} B has {width} columns")
             return (a, b32[:, :width].contiguous(),
@@ -1278,12 +1317,22 @@ def main() -> int:
         blk = cres_spmm._kmajor_blocks(tplan)
         num_slabs, slab_k = csr_vmem.slab_geometry(tplan, dev)
         n_op = int(ob32.shape[1])
-        # the routine's column tile for this grid (chunk_spmm.cu:
-        # owner_spmm): 128 unless fewer blocks than SMs
-        column_tile = 128 if tplan.num_row_tiles * -(-n_op // 128) >= sms \
-            else 64
+        # the routine's column tile for this grid: 128 unless fewer blocks
+        # than SMs
+        column_tile = chunk_cuda.column_tile(tplan.num_row_tiles, n_op, sms)
+        # the dense tiles' tensor-core products (16-row tiles, tk deep, n
+        # wide; 6 bf16 products a pair with f32 B, 3 with bf16) at the bf16
+        # rate; the dense product (cuBLAS, f32, TF32 off) where A fits
+        tc_flop = (2.0 * index["d_a"].shape[0] * index["d_a"].shape[1] * tk
+                   * n_op)
+        dense_a = (torch.from_numpy(ca.to_scipy().toarray()).to(dev)
+                   if ca.shape[0] * ca.shape[1] <= 1 << 26 else None)
         op = {"operand": op_name, "width": n_op, "tile_m": tm, "tile_k": tk,
               "column_tile": column_tile,
+              "tc_floor_ms": 6 * tc_flop / BF16_PEAK_FLOPS * 1e3,
+              "tc_floor_ms_bf16": 3 * tc_flop / BF16_PEAK_FLOPS * 1e3,
+              "cublas_dense_ms": (cuda_time_ms(lambda: dense_a @ ob32)
+                                  if dense_a is not None else None),
               "nnz": int(ca.nnz), "chunks": tplan.num_chunks,
               "tiles": len(index["tile_nnz"]),
               "dense_tiles": int(index["tile_dense"].sum()),
@@ -1297,6 +1346,7 @@ def main() -> int:
                   lambda: vendor.spmm_vendor(ca, ob32)),
               **bound(report.spmm_min_bytes(ca.nnz, *ca.shape, n_op),
                       report.spmm_flops(ca.nnz, n_op), hbm)}
+        del dense_a
         emit("tile_plan", **op)
         tile_ops[op_name, n_op, tm, tk] = op
         for tag in dtypes:
@@ -1317,11 +1367,34 @@ def main() -> int:
                        "dense_tiles": op["dense_tiles"],
                        "compared_columns": ncmp}
                 before = counter.launches
-                got = fn(tplan, b, "split")
+                kw = ({"issues": torch.zeros(1, dtype=torch.int32,
+                                             device=dev)}
+                      if name in clustered else {})
+                got = fn(tplan, b, "split", **kw)
                 again = fn(tplan, b, "split")
                 torch.cuda.synchronize()
                 check(counter.launches == before + 2,
                       f"{name} launch counter rose")
+                if kw:
+                    # each dense B chunk issued once per cluster: the
+                    # device's count is the schedule's, and fewer chunks
+                    # are staged than by the owners wherever members share
+                    # a k-tile and B is bulk copied
+                    traffic = cres_spmm.b_traffic(
+                        tplan, b, tile_spmm.dense_min(tk, False), sms)
+                    rec.update(traffic)
+                    rec["multicast_issues"] = int(kw["issues"].item())
+                    check(rec["multicast_issues"]
+                          == traffic["multicast_issues"],
+                          f"{name} {op_name} w{n_op} {tag} multicast issues "
+                          f"{rec['multicast_issues']} == the schedule's "
+                          f"{traffic['multicast_issues']}")
+                    if traffic["shared_steps"] and traffic["multicast_issues"]:
+                        check(traffic["cluster_stagings"]
+                              < traffic["owner_stagings"],
+                              f"{name} {op_name} w{n_op} {tag} stages fewer "
+                              f"B chunks than the owners ({traffic})")
+                    del kw
                 check(got.shape == (ca.shape[0], n_op)
                       and bool(torch.isfinite(got).all()),
                       f"{name} {op_name} output finite, shape")
@@ -2173,11 +2246,13 @@ def main() -> int:
                  "tpuspmm/kernels/tile_spmm.py:43"),
         "staged": ("staged_chunk_spmm", "chunk_spmm.cu",
                    "tpuspmm/kernels/csr_vmem.py:89"),
-        "cres": ("cres_chunk_spmm", "chunk_spmm.cu",
+        "cres": ("cres_cluster_spmm/block8", "chunk_spmm.cu",
                  "tpuspmm/kernels/cres_spmm.py:53"),
-        "cres_kloop": ("cres_kloop_chunk_spmm", "chunk_spmm.cu",
+        "cres_kloop": ("cres_cluster_spmm/kloop", "chunk_spmm.cu",
                        "tpuspmm/kernels/cres_spmm.py:163"),
     }
+    st = tools["stream"]
+    stream_rate = st["bytes"] / (st["ms"] * 1e-3)  # bytes/s, this run
     lines = []
     for name, (entry, source, replaces) in kernels.items():
         if name in launches:  # K1, K2: the CSR serving path
@@ -2230,14 +2305,31 @@ def main() -> int:
                      "b_dtype": tag, "ms": r["ms"],
                      "device_ms": r["device_ms"],
                      "bound_ms": tile_ops[o, w, tm, tk]["bound_ms"],
+                     "bound_ms_at_stream_rate": tile_ops[o, w, tm, tk][
+                         "bound_ms"] * hbm / stream_rate,
+                     "tc_floor_ms": tile_ops[o, w, tm, tk][
+                         "tc_floor_ms" if tag == "f32"
+                         else "tc_floor_ms_bf16"],
                      "cusparse_ms": tile_ops[o, w, tm, tk]["cusparse_ms"],
+                     "cublas_dense_ms": tile_ops[o, w, tm, tk][
+                         "cublas_dense_ms"],
                      "max_abs_err": r["split"]["max_abs_err"],
-                     "max_abs_c": r["split"]["max_abs_c"]}
+                     "max_abs_c": r["split"]["max_abs_c"],
+                     **{key: r[key] for key in (
+                         "multicast_issues", "b_copy", "b_panel_bytes")
+                        if key in r}}
                     for (kname, o, w, tm, tk, tag), r in tile_stats.items()
                     if kname == name]})
-            line["note"] = ("one tile-owner routine and one tile index for "
-                            "K3, K4, K5a and K5b: output bit-identical to "
-                            "K3's")
+            line["note"] = (
+                "one tile index for K3, K4, K5a and K5b, output bit-identical "
+                "to K3's; K3 and K4 on the owner routine, K5a and K5b on its "
+                f"cluster launch ({chunk_cuda.CLUSTER} row tiles a cluster, "
+                "each dense B chunk multicast once per cluster)"
+                if name in clustered else
+                "one tile index for K3, K4, K5a and K5b, output bit-identical "
+                "to K3's; K3 and K4 on the owner routine")
+            if name in clustered:
+                line["cluster"] = chunk_cuda.CLUSTER
         line.update({"library_call": "torch.sparse CSR @ B (cuSPARSE)",
                      "shapes": f"{HEADLINE} w{WIDTH}"})
         lines.append(line)
@@ -2279,7 +2371,6 @@ def main() -> int:
         "cusparse_csr_ms": ka["cusparse_csr_ms"],
         "shapes": "weight (a): 4096 x 4096, 128 x 128 blocks at 10%, B "
                   f"4096 x {PRUNED_WIDTH}"})
-    st = tools["stream"]
     lines.append({
         "name": "stream_2x_plus_1", "route": "cuda",
         "source": "tpuspmm_torch/csrc/stream.cu",

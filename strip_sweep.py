@@ -45,7 +45,17 @@ path's threshold, with every tile gathered and every tile dense as
 controls; a 64-row tile, which runs 4 warps a block), on CHUNK_CASES.
 Each variant runs K3's entry on the tile plan, is held against the plain
 version on a 128-column slice of B (1e-4·max|C|) and timed as above
-(``ms``: graph replay; ``call_ms``: the wrapper).
+(``ms``: graph replay; ``call_ms``: the wrapper).  CLUSTER_VARIANTS run
+the C-resident kernels' cluster launch (K5a's) at 2, 4 and 8 row tiles a
+cluster against "serving", the owner routine (R = 1), with controls
+(the launch at R = 1; at R = 2 with the fetch after the products, with
+the remote arrivals released at cluster scope, or with one thread
+waiting for a stage; at R = 1 and 2 with B staged by each member's
+cp.async, no bulk copy, whose multicast count is not held): each must
+give
+K3's bits (``same_bits``) and its multicast count (``issues``, the
+device counter) must equal the schedule's (``want_issues``); its build
+record has the clusters the card holds at once (``max_active_clusters``).
 """
 
 from __future__ import annotations
@@ -278,9 +288,8 @@ CHUNK_VARIANTS = {
     "tn128": ([(CHUNK_WIDE, "const int wide = 1;")], None, 128),
     "warps4_tm64": ([], None, 64),
     "two_stages": ([const("MAX_STAGES", 4, 2)], None, 128),
-    "index_order": ([("const int rt = ix.order[blockIdx.x / ncol];",
-                      "const int rt = blockIdx.x / ncol;")], None,
-                    128),
+    "index_order": ([("rt = ix.order[blockIdx.x / ncol];",
+                      "rt = blockIdx.x / ncol;")], None, 128),
     "unroll4": ([const("UNROLL", 8, 4)], None, 128),
     "unroll16": ([const("UNROLL", 8, 16)], None, 128),
     "smem_always": ([("n_dense > 0 ? C::SMEM : 0", "C::SMEM")],
@@ -288,6 +297,60 @@ CHUNK_VARIANTS = {
     "shuffle_each_load": ([(CHUNK_LOADS, CHUNK_LOADS_INTERLEAVED)],
                           None, 128),
 }
+# the C-resident cluster launch (cres_cluster_spmm) at R row tiles a
+# cluster, each a copy of the source built with CLUSTER = R (and the
+# patches listed), run through K5a's launcher; "serving" (K3, the owner
+# routine) is R = 1.  Controls: the cluster launch at R = 1 (its protocol
+# without a peer), and at R = 2 with each ring step's products before the
+# next stage's fetch (the leader's first warp then waits for its peers'
+# frees and issues the multicast after its products, not before)
+RING_STEP = """        const int next = it + G::STAGES - 1;
+        if (next < items) fetch(next, next % G::STAGES);
+        tc::cp_async_commit();
+        if (!CLUSTERED || tile_of(it / chunks) >= 0)
+          compute(it % G::STAGES);"""
+RING_STEP_FETCH_AFTER = """        if (!CLUSTERED || tile_of(it / chunks) >= 0)
+          compute(it % G::STAGES);
+        const int next = it + G::STAGES - 1;
+        if (next < items) fetch(next, next % G::STAGES);
+        tc::cp_async_commit();"""
+# control: no bulk copy, each member stages its B chunks with cp.async
+# under the same barriers
+NO_BULK = ("const bool bulk = b_async && n0 + TN <= n && krow0 + KC <= k;",
+           "const bool bulk = false;")
+CLUSTER_VARIANTS = {"cluster2": (2, []), "cluster4": (4, []),
+                    "cluster8": (8, []), "cluster1": (1, []),
+                    "cluster2_fetch_after_compute": (
+                        2, [(RING_STEP, RING_STEP_FETCH_AFTER)]),
+                    "cluster1_no_bulk": (1, [NO_BULK]),
+                    "cluster2_no_bulk": (2, [NO_BULK])}
+# the two remote arrivals released at cluster scope
+# (mbarrier.arrive.release.cluster) instead of mbarrier.arrive's default,
+# release at CTA scope (tensor_core.cuh: mbar_arrive_cluster)
+RELEASE_CLUSTER = [
+    ("namespace {\n", "namespace {\n" + '''
+__device__ __forceinline__ void arrive_remote(uint64_t* bar, uint32_t r) {
+  asm volatile(
+      "{\\n.reg .b32 remote;\\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];"
+      "\\n}\\n" ::"r"(tc::smem_addr(bar)), "r"(r) : "memory");
+}
+'''),
+    ("tc::mbar_arrive_cluster(&full[s], lane);",
+     "arrive_remote(&full[s], lane);"),
+    ("tc::mbar_arrive_cluster(&empty[(it - 1) % G::STAGES], 0);",
+     "arrive_remote(&empty[(it - 1) % G::STAGES], 0);")]
+# one thread waits for a stage to land, the block barrier passes it on
+ONE_WAITER = ("          tc::mbar_wait(&full[it % G::STAGES], it / G::STAGES & 1);",
+              "          if (tid == 0)\n"
+              "            tc::mbar_wait(&full[it % G::STAGES], "
+              "it / G::STAGES & 1);")
+CLUSTER_VARIANTS.update({
+    "cluster2_release_cluster": (2, RELEASE_CLUSTER),
+    "cluster2_one_waiter": (2, [ONE_WAITER])})
+# controls whose multicast count is not the schedule's (no multicast)
+CLUSTER_CONTROLS = ("cluster1_no_bulk", "cluster2_no_bulk")
 # (operand, B width or None for the on-disk width, B dtypes); "pruned_a"
 # is chip_smoke.py's pruned weight (a) as CSR, B drawn as there
 CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
@@ -439,66 +502,85 @@ def gate_ratio(result, a, b) -> float:
 
 
 def chunk_sweep(names: list) -> int:
-    """Build and time CHUNK_VARIANTS on CHUNK_CASES (see the module
-    docstring); prints one JSON line per variant build and one per (case,
-    B dtype)."""
+    """Build and time CHUNK_VARIANTS and CLUSTER_VARIANTS on CHUNK_CASES
+    (see the module docstring); prints one JSON line per variant build and
+    one per (case, B dtype)."""
     from tpuspmm_torch.formats import tiles
-    from tpuspmm_torch.kernels import chunk_cuda, cuda_build, tile_spmm
+    from tpuspmm_torch.kernels import (chunk_cuda, cres_spmm, cuda_build,
+                                       tile_spmm)
     from tpuspmm_torch.utils.compare import max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
 
+    variants = dict(CHUNK_VARIANTS)
+    for name, (r, patches) in CLUSTER_VARIANTS.items():
+        variants[name] = ([const("CLUSTER", chunk_cuda.CLUSTER, r),
+                           *patches], None, 128)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(
-            lambda name: build(name, CHUNK_VARIANTS[name][0],
+            lambda name: build(name, variants[name][0],
                                cuda_build.nvcc(), cuda_build.NVCC_FLAGS,
                                chunk_cuda.SOURCE,
                                os.path.join(OUT, "chunk")), names))
     libs = {}
     for rec in built:
-        print(json.dumps({k: v for k, v in rec.items()
-                          if k not in ("path", "group_rows")}), flush=True)
         if "path" in rec:
             libs[rec["name"]] = ctypes.CDLL(rec["path"])
             chunk_cuda._bind(libs[rec["name"]])
+            if rec["name"] in CLUSTER_VARIANTS:
+                chunk_cuda.load = lambda: libs[rec["name"]]
+                rec["max_active_clusters"] = {
+                    f"{'bf16' if bb else 'f32'}_B_tn{128 if wide else 64}":
+                    chunk_cuda.max_active_clusters(bb, wide, False)
+                    for bb in (False, True) for wide in (False, True)}
+        print(json.dumps({k: v for k, v in rec.items()
+                          if k not in ("path", "group_rows")}), flush=True)
     dev = torch.device("cuda")
     for case, width, dtypes in CHUNK_CASES:
         a, b_np = operand(case, width)
         b32 = torch.from_numpy(b_np).to(dev)
 
         def plan_of(name):
-            return tiles.plan_from_container(
-                a, tile_m=CHUNK_VARIANTS[name][2])
+            return tiles.plan_from_container(a, tile_m=variants[name][2])
 
-        def index(name):
-            _, per_k, _ = CHUNK_VARIANTS[name]
+        def min_dense(name):
+            _, per_k, _ = variants[name]
             per_k = tile_spmm.DENSE_PER_TILE_K if per_k is None else per_k
             plan = plan_of(name)
             # per_k·tile_k nonzeros, where the routine takes dense tiles
             takes = math.isfinite(tile_spmm.dense_min(plan.tile_k, False))
-            return plan, tile_spmm.index_arrays(
-                plan, dev, per_k * plan.tile_k if takes else math.inf)
+            return plan, per_k * plan.tile_k if takes else math.inf
 
-        for tag in dtypes:
-            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
-            b_slice = b[:, :128].contiguous()
-
-            def run(name, operand):
-                # K3's wrapper, launching this variant's library
-                plan, idx = index(name)
-                chunk_cuda.load = lambda: libs[name]
+        def run(name, operand, issues=None):
+            # K3's launcher, or K5a's for a cluster variant, launching this
+            # variant's library
+            plan, md = min_dense(name)
+            idx = tile_spmm.index_arrays(plan, dev, md)
+            chunk_cuda.load = lambda: libs[name]
+            if name not in CLUSTER_VARIANTS:
                 return chunk_cuda.launch("tile_chunk_spmm", idx, operand,
                                          plan.shape[0], plan.tile_m,
                                          plan.tile_k, False)
+            sched = cres_spmm.schedule_arrays(plan, dev, md,
+                                              CLUSTER_VARIANTS[name][0])
+            return chunk_cuda.launch_cluster(
+                "cres_chunk_spmm", idx, sched, operand, plan.shape[0],
+                plan.tile_m, plan.tile_k, False, issues)
 
-            serving = tile_spmm.host_index(
-                plan_of("serving"), tile_spmm.dense_min(128, False))
+        serving = tile_spmm.host_index(
+            plan_of("serving"), tile_spmm.dense_min(128, False))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for tag in dtypes:
+            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
+            b_slice = b[:, :128].contiguous()
             rec = {"case": case, "b": tag, "width": int(b.shape[1]),
                    "nnz": int(a.nnz), "tiles": len(serving["tile_nnz"]),
                    "dense_tiles": int(serving["tile_dense"].sum()),
-                   "err": {}, "gate_ratio": {}, "ms": {}, "call_ms": {}}
+                   "err": {}, "gate_ratio": {}, "ms": {}, "call_ms": {},
+                   "same_bits": {}, "issues": {}, "want_issues": {},
+                   "b_panel_bytes": {}}
             plains = {}
             for name in libs:
-                tm = CHUNK_VARIANTS[name][2]
+                tm = variants[name][2]
                 if tm not in plains:
                     plains[tm] = tile_spmm.tile_spmm_plain(plan_of(name),
                                                            b_slice, "split")
@@ -507,6 +589,22 @@ def chunk_sweep(names: list) -> int:
                 rec["err"][name] = (max_abs_err(got, plains[tm])
                                     / float(plains[tm].abs().max()))
                 rec["gate_ratio"][name] = gate_ratio(got, a, b_slice)
+            if "serving" in libs:
+                want = run("serving", b)
+                for name in CLUSTER_VARIANTS:
+                    if name not in libs:
+                        continue
+                    issues = torch.zeros(1, dtype=torch.int32, device=dev)
+                    got = run(name, b, issues)
+                    torch.cuda.synchronize()
+                    plan, md = min_dense(name)
+                    traffic = cres_spmm.b_traffic(plan, b, md, sms,
+                                                  CLUSTER_VARIANTS[name][0])
+                    rec["same_bits"][name] = bool(torch.equal(got, want))
+                    rec["issues"][name] = int(issues.item())
+                    rec["want_issues"][name] = traffic["multicast_issues"]
+                    rec["b_panel_bytes"][name] = traffic["b_panel_bytes"]
+                del want
             graphs = {}
             for name in libs:
                 run(name, b)  # the index on the device before capture
@@ -521,7 +619,11 @@ def chunk_sweep(names: list) -> int:
                 calls[name].append(cuda_time_ms(lambda: run(name, b)))
             rec["ms"] = {k: min(v) for k, v in times.items()}
             rec["call_ms"] = {k: min(v) for k, v in calls.items()}
-            rec["ok"] = all(e <= PLAIN_TOL for e in rec["err"].values())
+            rec["ok"] = (all(e <= PLAIN_TOL for e in rec["err"].values())
+                         and all(rec["same_bits"].values())
+                         and all(rec["issues"][v] == rec["want_issues"][v]
+                                 for v in rec["issues"]
+                                 if v not in CLUSTER_CONTROLS))
             print(json.dumps(rec), flush=True)
             del graphs, plains
     return 0
@@ -608,7 +710,8 @@ def main() -> int:
     ap.add_argument("--variants", default=None,
                     help="comma-separated variant names (default: all)")
     ap.add_argument("--chunk", action="store_true",
-                    help="sweep the tile-owner routine's CHUNK_VARIANTS")
+                    help="sweep the tile-owner routine's CHUNK_VARIANTS "
+                         "and CLUSTER_VARIANTS")
     ap.add_argument("--bsr", action="store_true",
                     help="sweep the block-streaming kernel's BSR_VARIANTS")
     ap.add_argument("--profile-host", action="store_true",
@@ -621,7 +724,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    variants = (BSR_VARIANTS if args.bsr else CHUNK_VARIANTS if args.chunk
+    variants = (BSR_VARIANTS if args.bsr
+                else {**CHUNK_VARIANTS, **CLUSTER_VARIANTS} if args.chunk
                 else VARIANTS)
     names = (args.variants.split(",") if args.variants else list(variants))
     if args.bsr:

@@ -452,7 +452,8 @@ def test_bindings_match_the_c_interface():
 
     with open(chunk_cuda.SOURCE) as f:
         text = f.read()
-    names = ("tile_owner_spmm", "chunk_spmm_blocks_per_sm",
+    names = ("tile_owner_spmm", "cres_cluster_spmm",
+             "chunk_spmm_blocks_per_sm", "cres_cluster_max_active",
              "chunk_spmm_error_string")
     lib = SimpleNamespace(**{name: SimpleNamespace() for name in names})
     chunk_cuda._bind(lib)
@@ -578,10 +579,17 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     counts = (tile_spmm.spmm_tiles.launches, csr_vmem.spmm_staged.launches,
               cres_spmm.spmm_cres.launches,
               cres_spmm.spmm_cres_kloop.launches)
+    min_dense = tile_spmm.dense_min(tp.tile_k, False)
     calls = (lambda: tile_spmm.spmm_tiles(tp, meta),
              lambda: csr_vmem.spmm_staged(tp, meta),
              lambda: cres_spmm.spmm_cres(tp, meta),
-             lambda: cres_spmm.spmm_cres_kloop(tp, meta, mode="split2"))
+             lambda: cres_spmm.spmm_cres_kloop(tp, meta, mode="split2"),
+             # the cluster launch itself, as K5a and K5b enter it
+             lambda: chunk_cuda.launch_cluster(
+                 "cres_chunk_spmm", tile_spmm.index_arrays(tp, "meta",
+                                                           min_dense),
+                 cres_spmm.schedule_arrays(tp, "meta", min_dense), meta,
+                 tp.shape[0], tp.tile_m, tp.tile_k, False))
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()

@@ -131,7 +131,7 @@ struct Geo {
                 "geometry");
 };
 
-// ---- wgmma, mbarrier and bulk-copy helpers -------------------------------
+// ---- wgmma helpers -------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -218,39 +218,7 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64],
 #undef ACC16
 #undef A_DESC
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   tc::smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          tc::smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(tc::smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` global -> shared by the TMA unit, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(tc::smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
-      : "memory");
-}
+// mbarriers and bulk copies: tc:: (tensor_core.cuh)
 
 // ---- the kernel -------------------------------------------------------------
 
@@ -284,8 +252,8 @@ bsr_wgmma_kernel(const int* __restrict__ indptr,
   const int steps = (indptr[br + 1] - j0) * kq;
 
   if (tid == 0) {
-    for (int s = 0; s < S; ++s) mbar_init(&bar[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < S; ++s) tc::mbar_init(&bar[s]);
+    tc::fence_mbarrier_init();
   }
   __syncthreads();
 
@@ -294,8 +262,8 @@ bsr_wgmma_kernel(const int* __restrict__ indptr,
     const int st = t % S;
     const int j = j0 + t / kq, q = t % kq;
     if (tid == 0) {
-      mbar_expect_tx(&bar[st], G::A_BYTES);
-      bulk_copy(a_s + st * G::A_BYTES,
+      tc::mbar_expect_tx(&bar[st], G::A_BYTES);
+      tc::bulk_copy(a_s + st * G::A_BYTES,
                 planes + ((int64_t)(j * subs + sub) * kq + q) * G::A_BYTES,
                 G::A_BYTES, &bar[st]);
     }
@@ -343,7 +311,7 @@ bsr_wgmma_kernel(const int* __restrict__ indptr,
   for (int t = 0; t < steps; ++t) {
     const int st = t % S;
     tc::cp_async_wait<S - 2>();
-    mbar_wait(&bar[st], (t / S) & 1);
+    tc::mbar_wait(&bar[st], (t / S) & 1);
     __syncthreads();  // B visible to all; the stage of step t - 1 is free
     if (t + S - 1 < steps) issue(t + S - 1);
     tc::cp_async_commit();

@@ -1,23 +1,27 @@
 // Tile-owner SpMM for Hopper (sm_90a): the tile-plan kernels of
-// tpuspmm_torch, one routine on the CUDA cores and the tensor cores.
+// tpuspmm_torch, one routine on the CUDA cores and the tensor cores, and
+// its cluster launch for the C-resident kernels.
 //
 // Replaces four TPU kernels that read one plan (formats/tiles.py: chunks of
 // E nonzeros, each inside one tm x tk tile, row -1 = padding), each
-// launched through tile_owner_spmm by its own Python entry:
+// launched by its own Python entry, which passes its name for messages:
 //   tile_chunk_spmm        <- tpuspmm/kernels/tile_spmm.py::_kernel (K3)
 //   staged_chunk_spmm      <- tpuspmm/kernels/csr_vmem.py::_kernel (K4)
+//     (both through the C entry tile_owner_spmm)
 //   cres_chunk_spmm        <- tpuspmm/kernels/cres_spmm.py::_kernel (K5a)
-//   cres_kloop_chunk_spmm  <- tpuspmm/kernels/cres_spmm.py::_kernel_kloop (K5b)
+//   cres_kloop_chunk_spmm  <- tpuspmm/kernels/cres_spmm.py::_kernel_kloop
+//     (K5b; both through the C entry cres_cluster_spmm)
 // Each TPU kernel densifies a chunk with one-hot matmuls on the MXU (Mosaic
 // could not lower an in-kernel gather) and adds the product into an output
 // block that later grid steps revisit: K3 through first[c], K4 across
 // slabs, K5 into the whole VMEM-resident C.  That relies on grid steps
-// running in order.
+// running in order.  K5 walks its chunks k-major, so one DMA of a k-tile's
+// B panel serves every chunk of that k-tile in every row tile.
 //
 // The plan is read through a tile index built once on the host from the
 // unchanged plan arrays (kernels/tile_spmm.py::build_tile_index), each row
-// tile's chunks in ascending k-tile.  The four kernels are one C entry,
-// tile_owner_spmm, over that one index, so they give the same bits.
+// tile's chunks in ascending k-tile; every entry reads that one index, so
+// all four give the same bits.
 // Each non-empty (row tile, k-tile) tile is one of two kinds:
 //   - dense (at least 8·tile_k nonzeros, tile_spmm.dense_min: below that
 //     the tile's tm·tk products a column on the tensor cores cost more
@@ -32,8 +36,8 @@
 // 64 when a 128-column grid has fewer blocks than SMs), launched longest
 // row tile first.  Warp w owns the 16 rows [w*16, +16) of the tile: a
 // block runs ceil(tm / 16) warps, at most 8 (tm <= 128).
-//   1. Dense tiles, ascending k-tile: a cp.async ring stages each KC-deep
-//      chunk of the tile's A (tm x KC f32) and of its B panel (KC x TN) in
+//   1. Dense tiles, ascending k-tile: a ring stages each KC-deep chunk of
+//      the tile's A (tm x KC f32, cp.async) and of its B panel (KC x TN) in
 //      shared memory once, for all of the block's warps; each warp runs
 //      bf16 mma.sync m16n8k16 on its 16 rows with f32 accumulators in
 //      registers, f32 values split into bf16 terms in registers
@@ -55,6 +59,30 @@
 // sum order on every run (dense sum, then the gathered products in order),
 // and a row tile with no nonzero is written as zeros.
 //
+// K5's mechanism, a k-tile's B panel fetched once for many row tiles, is
+// the cluster launch (cres_cluster_spmm).  CLUSTER consecutive row tiles of
+// one column tile are the blocks of one thread-block cluster
+// (kernels/cres_spmm.py::cluster_schedule, built once per plan); the
+// clusters are launched most nonzeros first.  Their ring walks the
+// ascending union of the members' dense k-tiles.  For each KC-row chunk,
+// the leader (rank 0) waits until every member freed the ring stage (its
+// empty barrier, one remote arrival from each member), then its first warp
+// copies the chunk's KC rows, one bulk copy of TN·esize bytes each,
+// multicast into that stage of every member, which counts the bytes on its
+// own full barrier.  A chunk with rows past k, columns past n or B rows
+// that are not 16-byte aligned (widths 77 and 130) cannot be bulk copied
+// (no zero fill, 16-byte sizes): there each member that has a tile at the
+// step copies its own chunk with cp.async, as the owner routine does, and
+// the leader's remote arrival releases the stage.  A member that has no
+// tile at a step (or no row tile: the last cluster's padding) still waits
+// and frees, so the ring never stalls.  Each member stages its own A chunk
+// and runs the owner's products on its own tiles in ascending k-tile, then
+// the same gather: the output equals the owner routine's bit for bit.  A
+// barrier.cluster before the sums are stored keeps every CTA alive while a
+// peer's copy or arrival may still target its shared memory.  At "split2"
+// the index has no dense tile, so there is no panel to share: the launch
+// runs the gather phase alone.
+//
 // Tiers: "split" / "highest" take both paths (f32 FMAs when gathered, the
 // 6- or 3-product ladder on dense tiles: at least as faithful as the TPU's
 // 3-term split and HIGHEST passes).  "split2" reproduces the TPU's
@@ -66,11 +94,18 @@
 // What bounds it on this card (PERF.md §5-6): gathered tiles move one B
 // row (TN columns) from L2 per nonzero and column tile -- no reuse across
 // nonzeros, but every warp of every block in flight with UNROLL loads
-// each (2.3 TB/s on large_25605 with f32 B); dense tiles move one B panel
-// per (row tile, k-tile, column tile) and are bound by the ring and the
-// term ladder's products (10x the bf16 floor with f32 B on a pruned
-// weight).  Left for later: cluster multicast of a k-tile's B panel to the
-// row tiles that share it; wgmma.
+// each (2.3 TB/s on large_25605 with f32 B); dense tiles move one A chunk
+// per (row tile, k-tile, column tile) and one B chunk per owner or per
+// cluster, and are bound by the ring and the term ladder's products (10x
+// the bf16 floor with f32 B on a pruned weight).  The cluster cuts the B
+// chunks read by up to CLUSTER times, not the A chunks, and makes a
+// cluster's members walk their union of k-tiles in step.  On the H100 it
+// is slower than the owner routine wherever it shares a panel (2048²
+// w1024, bf16 B: 0.179 against 0.120 ms): the ring's barriers cost the
+// owner's protocol-free loop about a sixth, and the KC one-row bulk copies
+// of a chunk (128-512 bytes each) more than members copying their own
+// chunks (PERF.md §6).  Left for later: one 2-D tensor-map copy a
+// chunk; a producer warp; A re-read per column tile; wgmma.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -93,6 +128,17 @@ constexpr int KC = 32;          // k-chunk of a dense ring stage (chunk_cuda.KC)
 constexpr int MAX_STAGES = 4;   // ring stages at most
 constexpr int BLOCKS = 2;       // blocks an SM holds at once
 constexpr int UNROLL = 8;       // gathered B rows a warp loads ahead
+// row tiles of a C-resident cluster (chunk_cuda.CLUSTER; at most 8, the
+// portable cluster size).  2: the H100 holds 132 clusters of 2 at once
+// (cudaOccupancyMaxActiveClusters), every grid of the sweep in one wave,
+// but 62 of 4 and 30 of 8, so the 256-block grids of 2048² and pruned
+// weight (a) take two waves there; and the members walk the union of
+// their k-tiles in step, which costs more the wider the cluster.  Device
+// ms at R = 1 (the owner routine) / 2 / 4 / 8 on pruned (a) w512 f32:
+// 0.0986 / 0.1150 / 0.1560 / 0.2606; 2048² w1024 f32: 0.2450 / 0.2793 /
+// 0.4480 / 0.4482; no dense tile (large_25605 w256): 0.0379 / 0.0384 /
+// 0.0376 / 0.0383 (strip_sweep.py --chunk, NVIDIA H100 80GB HBM3, 700 W)
+constexpr int CLUSTER = 2;
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory per block
 constexpr int SM_SMEM = 233472;     // shared memory of one SM
 constexpr unsigned FULL = 0xffffffffu;
@@ -225,9 +271,24 @@ __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.f);
 }
 
-template <int TN, typename TB, bool SPLIT2>
+// the cluster schedule on the device (kernels/cres_spmm.py::
+// cluster_schedule): CLUSTER consecutive row tiles a cluster, its steps the
+// ascending union of its members' dense k-tiles
+struct ClusterSchedule {
+  const int* c_rt;     // (clusters, CLUSTER) member row tiles, -1: padding
+  const int* c_ptr;    // (clusters + 1,) steps of each cluster
+  const int* s_kt;     // k-tile of each step
+  const int* s_tile;   // (steps, CLUSTER) each member's dense tile, or -1
+  const int* c_order;  // clusters, most work first
+  int* issues;         // multicast issues, counted where not null
+};
+
+// CLUSTERED: the C-resident kernels' launch (cres_cluster_spmm), a block
+// per member of a cluster; else the owner routine (tile_owner_spmm), a
+// block per (row tile, column tile)
+template <int TN, typename TB, bool SPLIT2, bool CLUSTERED>
 __global__ void __launch_bounds__(THREADS, BLOCKS)
-tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
+tile_owner_kernel(TileIndex ix, ClusterSchedule cs, const TB* __restrict__ b,
                   float* __restrict__ out, int m, int k, int n, int tm,
                   int tk, int b_async, int b_vec) {
   using G = Geo<TN, TB>;
@@ -237,32 +298,101 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ncol = (n + TN - 1) / TN;
-  const int rt = ix.order[blockIdx.x / ncol];
-  const int n0 = blockIdx.x % ncol * TN;
+  // the block's row tile (-1: a cluster's padding member) and columns
+  // [n0, +TN).  A cluster is CLUSTER consecutive blocks, its CTA ranks
+  // (the launch's cluster is (CLUSTER, 1, 1)), over one column tile
+  int rt, n0, rank = 0, cl = 0;
+  if constexpr (CLUSTERED) {
+    rank = blockIdx.x % CLUSTER;
+    const int q = blockIdx.x / CLUSTER;
+    cl = cs.c_order[q / ncol];
+    n0 = q % ncol * TN;
+    rt = cs.c_rt[cl * CLUSTER + rank];
+  } else {
+    rt = ix.order[blockIdx.x / ncol];
+    n0 = blockIdx.x % ncol * TN;
+  }
   bool dense = false;
 
   if constexpr (!SPLIT2) {
-    const int d0 = ix.d_ptr[rt], d1 = ix.d_ptr[rt + 1];
+    int d0 = 0, d1 = 0;
+    if (rt >= 0) d0 = ix.d_ptr[rt], d1 = ix.d_ptr[rt + 1];
     dense = d1 > d0;  // the same for every thread of the block
-    if (dense) {
+    // ring steps: the owner's dense tiles, or its cluster's union of dense
+    // k-tiles (the same for every CTA of the cluster)
+    int s0 = 0, steps = d1 - d0;
+    if constexpr (CLUSTERED) {
+      s0 = cs.c_ptr[cl];
+      steps = cs.c_ptr[cl + 1] - s0;
+    }
+    if (steps > 0) {
       constexpr bool B_BF16 = sizeof(TB) == 2;
       constexpr int VB = 16 / sizeof(TB);  // B elements per 16-byte copy
+      constexpr int B_ROW = TN * (int)sizeof(TB);  // bytes of a chunk row
+      static_assert(KC == 32, "a warp's lanes copy a B chunk's rows");
       const int nthreads = blockDim.x;
       const int tm16 = (tm + 15) & ~15;
       const int chunks = tk / KC;  // ring items per dense tile
-      const int items = (d1 - d0) * chunks;
+      const int items = steps * chunks;
       auto stage_a = [&](int s) {
         return reinterpret_cast<float*>(smem + s * G::STAGE_BYTES);
       };
       auto stage_b = [&](int s) {
         return reinterpret_cast<TB*>(smem + s * G::STAGE_BYTES + G::A_BYTES);
       };
-      // fill ring stage s with item (dense tile, k-chunk): the tile's A
-      // rows and the B panel's KC x TN chunk (rows >= k and columns >= n
-      // zero-filled).  Every thread calls it.
+      // a cluster's barriers, past the ring: full[s], this CTA's stage s
+      // landed (one arrival and, for a multicast, its bytes); empty[s], the
+      // leader's (rank 0), every member freed stage s (CLUSTER arrivals)
+      uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::SMEM);
+      uint64_t* empty = full + G::STAGES;
+      // the block's dense tile at ring step `step` (-1: none there)
+      auto tile_of = [&](int step) {
+        if constexpr (CLUSTERED)
+          return cs.s_tile[(s0 + step) * CLUSTER + rank];
+        else
+          return d0 + step;
+      };
+      // fill ring stage s with item (step, k-chunk): the tile's A rows and
+      // the B panel's KC x TN chunk (rows >= k and columns >= n
+      // zero-filled).  Every thread calls it.  In a cluster the leader
+      // refills its stage once every member freed it; it then copies a
+      // chunk that lies inside B with 16-byte rows (b_async) to every
+      // member's stage at once (one bulk copy a row, multicast), and
+      // otherwise each member that has a tile at the step copies its own,
+      // the leader's arrival releasing the stage
       auto fetch = [&](int item, int s) {
-        const int t = d0 + item / chunks;
+        const int step = item / chunks;
+        const int t = tile_of(step);
         const int kc = item % chunks * KC;
+        int kt;
+        if constexpr (CLUSTERED)
+          kt = cs.s_kt[s0 + step];
+        else
+          kt = ix.d_kt[t];
+        const int krow0 = kt * tk + kc;
+        bool own_b = true;
+        if constexpr (CLUSTERED) {
+          const bool bulk = b_async && n0 + TN <= n && krow0 + KC <= k;
+          if (bulk && tid == 0) tc::mbar_expect_tx(&full[s], KC * B_ROW);
+          if (rank == 0 && warp == 0) {
+            if (item >= G::STAGES) {
+              if (lane == 0)
+                tc::mbar_wait(&empty[s], (item / G::STAGES - 1) & 1);
+              __syncwarp();
+            }
+            if (bulk) {  // lane r: panel row krow0 + r
+              tc::bulk_copy_multicast(
+                  stage_b(s) + lane * G::B_LD,
+                  b + (size_t)(krow0 + lane) * n + n0, B_ROW, &full[s],
+                  (uint16_t)((1u << CLUSTER) - 1));
+              if (lane == 0 && cs.issues) atomicAdd(cs.issues, 1);
+            } else if (lane < CLUSTER) {
+              tc::mbar_arrive_cluster(&full[s], lane);
+            }
+          }
+          own_b = !bulk;
+          if (t < 0) return;  // this member has no tile at the step
+        }
         const float* a_src = ix.d_a + (size_t)t * tm16 * tk + kc;
         float* sa = stage_a(s);
         for (int i = tid; i < tm16 * (KC / 4); i += nthreads) {
@@ -270,7 +400,7 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
           tc::cp_async16(sa + row * G::A_LD + c, a_src + (size_t)row * tk + c,
                          16);
         }
-        const int krow0 = ix.d_kt[t] * tk + kc;
+        if (!own_b) return;
         TB* sb = stage_b(s);
         for (int i = tid; i < KC * (TN / VB); i += nthreads) {
           const int r = i / (TN / VB), c = i % (TN / VB) * VB;
@@ -359,6 +489,16 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
         }
       };
 
+      if constexpr (CLUSTERED) {
+        if (tid == 0) {
+          for (int s = 0; s < G::STAGES; ++s) {
+            tc::mbar_init(&full[s], 1);
+            tc::mbar_init(&empty[s], CLUSTER);
+          }
+          tc::fence_mbarrier_init();
+        }
+        tc::cluster_sync();  // every member's barriers are set up
+      }
       // the ring: STAGES - 1 items in flight while one is consumed
 #pragma unroll
       for (int s = 0; s < G::STAGES - 1; ++s) {
@@ -367,14 +507,25 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
       }
       for (int it = 0; it < items; ++it) {
         tc::cp_async_wait<G::STAGES - 2>();
+        if constexpr (CLUSTERED)
+          tc::mbar_wait(&full[it % G::STAGES], it / G::STAGES & 1);
         __syncthreads();  // item it landed; every warp is done with it - 1
+        // a member with no tile at a step still waits and frees, so the
+        // leader's ring moves on
+        if constexpr (CLUSTERED)
+          if (it > 0 && tid == 0)
+            tc::mbar_arrive_cluster(&empty[(it - 1) % G::STAGES], 0);
         const int next = it + G::STAGES - 1;
         if (next < items) fetch(next, next % G::STAGES);
         tc::cp_async_commit();
-        compute(it % G::STAGES);
+        if (!CLUSTERED || tile_of(it / chunks) >= 0)
+          compute(it % G::STAGES);
       }
       tc::cp_async_wait<0>();
       __syncthreads();  // the ring is free: it now holds the dense sums
+      // no copy or arrival targets a CTA's shared memory past this point:
+      // no CTA of a cluster leaves before all of them are here
+      if constexpr (CLUSTERED) tc::cluster_sync();
       float* d = reinterpret_cast<float*>(smem) + warp * WARP_ROWS * G::D_LD;
 #pragma unroll
       for (int nt = 0; nt < TN / 8; ++nt)
@@ -386,6 +537,8 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
       __syncwarp();  // each warp reads back its own rows only
     }
   }
+  if constexpr (CLUSTERED)
+    if (rt < 0) return;  // a padding member owns no rows
 
   // sparse nonzeros.  The warp's rows hold one contiguous range of the
   // CSR, walked as one stream in batches of 32 (each lane loads one
@@ -490,38 +643,47 @@ tile_owner_kernel(TileIndex ix, const TB* __restrict__ b,
   while (cur < rows) end_row();
 }
 
-template <int TN_, typename TB_, bool SPLIT2_>
+template <int TN_, typename TB_, bool SPLIT2_, bool CLUSTERED_>
 struct Cfg {
   static constexpr int TN = TN_;
   using TB = TB_;
   static constexpr bool SPLIT2 = SPLIT2_;
-  static constexpr int SMEM = SPLIT2_ ? 0 : Geo<TN_, TB_>::SMEM;
+  static constexpr bool CLUSTERED = CLUSTERED_;
+  // the ring (or the dense sums), then a cluster's full and empty barriers
+  static constexpr int SMEM =
+      SPLIT2_ ? 0
+              : Geo<TN_, TB_>::SMEM +
+                    (CLUSTERED_ ? 2 * Geo<TN_, TB_>::STAGES * 8 : 0);
 };
 
+template <typename C>
+using KernelOf = decltype(&tile_owner_kernel<C::TN, typename C::TB,
+                                             C::SPLIT2, C::CLUSTERED>);
+
 // fn(Cfg<...>{}) for the instantiation these arguments select
-template <typename Fn>
+template <bool CLUSTERED, typename Fn>
 cudaError_t select(int b_bf16, int wide, int split2, Fn fn) {
   using bf16 = __nv_bfloat16;
   if (b_bf16) {
     if (wide)
-      return split2 ? fn(Cfg<WIDE_TN, bf16, true>{})
-                    : fn(Cfg<WIDE_TN, bf16, false>{});
-    return split2 ? fn(Cfg<NARROW_TN, bf16, true>{})
-                  : fn(Cfg<NARROW_TN, bf16, false>{});
+      return split2 ? fn(Cfg<WIDE_TN, bf16, true, CLUSTERED>{})
+                    : fn(Cfg<WIDE_TN, bf16, false, CLUSTERED>{});
+    return split2 ? fn(Cfg<NARROW_TN, bf16, true, CLUSTERED>{})
+                  : fn(Cfg<NARROW_TN, bf16, false, CLUSTERED>{});
   }
   if (wide)
-    return split2 ? fn(Cfg<WIDE_TN, float, true>{})
-                  : fn(Cfg<WIDE_TN, float, false>{});
-  return split2 ? fn(Cfg<NARROW_TN, float, true>{})
-                : fn(Cfg<NARROW_TN, float, false>{});
+    return split2 ? fn(Cfg<WIDE_TN, float, true, CLUSTERED>{})
+                  : fn(Cfg<WIDE_TN, float, false, CLUSTERED>{});
+  return split2 ? fn(Cfg<NARROW_TN, float, true, CLUSTERED>{})
+                : fn(Cfg<NARROW_TN, float, false, CLUSTERED>{});
 }
 
 // the kernel of C with its shared-memory limit raised, once on each device
 // (one bit each; devices past 64 set it at every call)
 template <typename C>
-cudaError_t prepared(decltype(&tile_owner_kernel<C::TN, typename C::TB,
-                                                 C::SPLIT2>)* out) {
-  auto kernel = tile_owner_kernel<C::TN, typename C::TB, C::SPLIT2>;
+cudaError_t prepared(KernelOf<C>* out) {
+  auto kernel =
+      tile_owner_kernel<C::TN, typename C::TB, C::SPLIT2, C::CLUSTERED>;
   *out = kernel;
   if (C::SMEM <= 48 * 1024) return cudaSuccess;
   static std::atomic<unsigned long long> raised{0};
@@ -537,13 +699,37 @@ cudaError_t prepared(decltype(&tile_owner_kernel<C::TN, typename C::TB,
   return err;
 }
 
-int owner_spmm(TileIndex ix, const void* b, int b_bf16, void* out,
-               int num_tiles, int m, int k, int n, int tm, int tk,
-               int n_dense, int split2, int sms, void* stream) {
+// a launch of clusters of CLUSTER blocks along x
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int blocks, int threads, int smem, cudaStream_t s) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CLUSTER;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// launch the routine over `units` row-tile places: the owner routine's
+// num_tiles row tiles, or clusters x CLUSTER members.  The column tile
+// follows the real row tiles, so both launches take the same one
+template <bool CLUSTERED>
+int launch_routine(TileIndex ix, ClusterSchedule cs, int units, const void* b,
+                   int b_bf16, void* out, int num_tiles, int m, int k, int n,
+                   int tm, int tk, int n_dense, int split2, int sms,
+                   void* stream) {
   const int ncol64 = (n + NARROW_TN - 1) / NARROW_TN;
-  if (num_tiles <= 0 || m <= 0 || k <= 0 || n <= 0 || tm <= 0 ||
-      tm > MAX_ROWS || tk <= 0 || sms <= 0 ||
-      (long long)num_tiles * ncol64 > 0x7fffffff)
+  if (num_tiles <= 0 || units < num_tiles || m <= 0 || k <= 0 || n <= 0 ||
+      tm <= 0 || tm > MAX_ROWS || tk <= 0 || sms <= 0 ||
+      (long long)units * ncol64 > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const int esize = b_bf16 ? 2 : 4;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(b);
@@ -555,17 +741,27 @@ int owner_spmm(TileIndex ix, const void* b, int b_bf16, void* out,
   const int b_vec = addr % (vec * esize) == 0 && n % vec == 0;
   const int threads = (tm + WARP_ROWS - 1) / WARP_ROWS * 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)select(b_bf16, wide, split2, [&](auto c) {
+  return (int)select<CLUSTERED>(b_bf16, wide, split2, [&](auto c) {
     using C = decltype(c);
-    decltype(&tile_owner_kernel<C::TN, typename C::TB, C::SPLIT2>) kernel;
+    using TB = typename C::TB;
+    KernelOf<C> kernel;
     cudaError_t err = prepared<C>(&kernel);
     if (err != cudaSuccess) return err;
-    const int blocks = num_tiles * ((n + C::TN - 1) / C::TN);
+    const int blocks = units * ((n + C::TN - 1) / C::TN);
     // an index with no dense tile never touches shared memory: launched
     // without it, the SM keeps it as L1 cache for the gathered B rows
-    kernel<<<blocks, threads, n_dense > 0 ? C::SMEM : 0, s>>>(
-        ix, static_cast<const typename C::TB*>(b), static_cast<float*>(out),
-        m, k, n, tm, tk, b_async, b_vec);
+    const int smem = n_dense > 0 ? C::SMEM : 0;
+    const TB* bt = static_cast<const TB*>(b);
+    float* o = static_cast<float*>(out);
+    if constexpr (C::CLUSTERED) {
+      ClusterLaunch launch(blocks, threads, smem, s);
+      err = cudaLaunchKernelEx(&launch.cfg, kernel, ix, cs, bt, o, m, k, n,
+                               tm, tk, b_async, b_vec);
+      if (err != cudaSuccess) return err;
+    } else {
+      kernel<<<blocks, threads, smem, s>>>(ix, cs, bt, o, m, k, n, tm, tk,
+                                           b_async, b_vec);
+    }
     return cudaGetLastError();
   });
 }
@@ -583,39 +779,76 @@ extern "C" {
 // device's SM count.  Returns cudaGetLastError() after the launch.
 //
 // The one entry of K3 (tile_spmm.py::_kernel, grid (n tile, chunk), out
-// tile stored on first[c] else added), K4 (csr_vmem.py::_kernel, grid (row
-// tile, slab), B whole or one slab_k stripe resident, written at s = 0 and
-// added after), K5a (cres_spmm.py::_kernel, grid over 8-chunk k-major
-// blocks sharing a B panel, whole C resident in VMEM) and K5b
-// (cres_spmm.py::_kernel_kloop, grid over k-tiles): all four read the
-// index of the row-major plan.  K5's mechanism, one B panel read serving
-// the chunks of its k-tile, lands here at the scale of one owner: a dense
-// tile's panel is staged once for all of its chunks.  K4 stages only the
-// panels of the k-tiles that hold a dense tile, a KC-row chunk at a time:
-// no whole-slab stripe.
+// tile stored on first[c] else added) and K4 (csr_vmem.py::_kernel, grid
+// (row tile, slab), B whole or one slab_k stripe resident, written at s =
+// 0 and added after): both read the index of the row-major plan.  K4
+// stages only the panels of the k-tiles that hold a dense tile, a KC-row
+// chunk at a time: no whole-slab stripe.
 int tile_owner_spmm(const int* row_ptr, const int* g_col, const float* g_val,
                     const int* d_ptr, const int* d_kt, const float* d_a,
                     const int* order, const void* b, int b_bf16, void* out,
                     int num_tiles, int m, int k, int n, int tm, int tk,
                     int n_dense, int split2, int sms, void* stream) {
-  return owner_spmm({row_ptr, g_col, g_val, d_ptr, d_kt, d_a, order}, b,
-                    b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2,
-                    sms, stream);
+  return launch_routine<false>(
+      {row_ptr, g_col, g_val, d_ptr, d_kt, d_a, order}, ClusterSchedule{},
+      num_tiles, b, b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2,
+      sms, stream);
 }
 
-// Blocks of the routine one SM holds at once (the occupancy calculator),
-// for a record; 0 with the error in *err.
+// K5a (cres_spmm.py::_kernel, grid over 8-chunk k-major blocks, each
+// block's B panel fetched once for all of them, whole C resident in VMEM)
+// and K5b (cres_spmm.py::_kernel_kloop, grid over k-tiles): the same index
+// read through a cluster schedule (c_rt, c_ptr, s_kt, s_tile, c_order over
+// num_clusters clusters of `cluster` row tiles, which must be CLUSTER),
+// launched as clusters of CLUSTER blocks.  Each k-tile's B chunk is read
+// once for the row tiles of a cluster; issues, where not null, counts the
+// multicast chunks.  The output equals tile_owner_spmm's bit for bit.
+int cres_cluster_spmm(const int* row_ptr, const int* g_col,
+                      const float* g_val, const int* d_ptr, const int* d_kt,
+                      const float* d_a, const int* order, const int* c_rt,
+                      const int* c_ptr, const int* s_kt, const int* s_tile,
+                      const int* c_order, int* issues, int cluster,
+                      int num_clusters, const void* b, int b_bf16, void* out,
+                      int num_tiles, int m, int k, int n, int tm, int tk,
+                      int n_dense, int split2, int sms, void* stream) {
+  if (cluster != CLUSTER || num_clusters <= 0 ||
+      (long long)num_clusters * CLUSTER > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  return launch_routine<true>(
+      {row_ptr, g_col, g_val, d_ptr, d_kt, d_a, order},
+      {c_rt, c_ptr, s_kt, s_tile, c_order, issues}, num_clusters * CLUSTER,
+      b, b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2, sms,
+      stream);
+}
+
+// Blocks of the owner routine one SM holds at once (the occupancy
+// calculator), for a record; 0 with the error in *err.
 int chunk_spmm_blocks_per_sm(int b_bf16, int wide, int split2, int* err) {
   int blocks = 0;
-  *err = (int)select(b_bf16, wide, split2, [&](auto c) {
+  *err = (int)select<false>(b_bf16, wide, split2, [&](auto c) {
     using C = decltype(c);
-    decltype(&tile_owner_kernel<C::TN, typename C::TB, C::SPLIT2>) kernel;
+    KernelOf<C> kernel;
     cudaError_t e = prepared<C>(&kernel);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                          THREADS, C::SMEM);
   });
   return blocks;
+}
+
+// Clusters of the C-resident launch the card holds at once
+// (cudaOccupancyMaxActiveClusters), for a record; 0 with the error in *err.
+int cres_cluster_max_active(int b_bf16, int wide, int split2, int* err) {
+  int clusters = 0;
+  *err = (int)select<true>(b_bf16, wide, split2, [&](auto c) {
+    using C = decltype(c);
+    KernelOf<C> kernel;
+    cudaError_t e = prepared<C>(&kernel);
+    if (e != cudaSuccess) return e;
+    ClusterLaunch launch(CLUSTER, THREADS, C::SMEM, nullptr);
+    return cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+  });
+  return clusters;
 }
 
 const char* chunk_spmm_error_string(int code) {

@@ -1,7 +1,10 @@
 // Device helpers for the tensor-core kernels of tpuspmm_torch (sm_90a):
 // asynchronous 16-byte copies into shared memory, ldmatrix fragment loads,
-// the bf16 m16n8k16 product with f32 accumulation, and the bf16 term split
-// of kernels/common.py::split_bf16, two values at a time.
+// the bf16 m16n8k16 product with f32 accumulation, the bf16 term split
+// of kernels/common.py::split_bf16, two values at a time, and the
+// mbarriers, bulk copies (the TMA unit, 1-D: no tensor map) and thread
+// block clusters that K6 (bsr_spmm.cu) and the C-resident cluster kernel
+// (chunk_spmm.cu) stage with.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4·gid + tid4):
 //   A (16 x 16, row-major): reg 0 = row gid, k 2·tid4 + {0, 1}; reg 1 = row
@@ -95,6 +98,94 @@ __device__ __forceinline__ uint32_t bf16x2_term(float& lo, float& hi) {
   lo -= __low2float(h);
   hi -= __high2float(h);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ---- mbarriers, bulk copies, clusters -----------------------------------
+
+// an mbarrier whose phases complete after `count` arrivals (and the bytes
+// they expect)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// make the barriers this thread initialised visible to the cluster and to
+// the copy unit
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` of copies in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// one arrival on the barrier at bar's offset in the shared memory of CTA
+// `rank` of this cluster (mapa), with mbarrier.arrive's default semantics,
+// release at CTA scope, as CUTLASS's ClusterBarrier arrives: the callers
+// release no data through it, only a stage their block has read, and a
+// release at cluster scope (.release.cluster) cost the C-resident cluster
+// launch 4-14% of its time on the dense operands (strip_sweep.py --chunk,
+// cluster2_release_cluster; NVIDIA H100 80GB HBM3, 700 W)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` global -> shared by the TMA unit, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bulk_copy into the same offsets of every CTA of the cluster in `mask`
+// (bit r: CTA rank r), each completing on its own barrier at bar's offset:
+// one read of the source for all of them
+__device__ __forceinline__ void bulk_copy_multicast(void* dst,
+                                                    const void* src,
+                                                    int bytes, uint64_t* bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait for
+// all of them (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
 }
 
 }  // namespace tc

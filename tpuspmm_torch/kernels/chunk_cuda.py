@@ -1,7 +1,10 @@
 """Build, load and launch the tile-owner CUDA routine (csrc/chunk_spmm.cu):
-the tile-plan kernels K3 (tile), K4 (staged), K5a and K5b (C-resident),
-one C entry (``tile_owner_spmm``) over one tile index
-(:func:`tpuspmm_torch.kernels.tile_spmm.build_tile_index`); each Python
+the tile-plan kernels K3 (tile) and K4 (staged) through the C entry
+``tile_owner_spmm`` (:func:`launch`), K5a and K5b (C-resident) through its
+cluster launch ``cres_cluster_spmm`` (:func:`launch_cluster`), all over
+one tile index (:func:`tpuspmm_torch.kernels.tile_spmm.build_tile_index`),
+the cluster launch also over a cluster schedule
+(:func:`tpuspmm_torch.kernels.cres_spmm.cluster_schedule`); each Python
 entry passes its own name, for messages.
 
 Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
@@ -26,8 +29,13 @@ WARP_ROWS = 16
 MAX_ROWS = 128
 COLUMN_TILES = (64, 128)
 KC = 32
+# row tiles of a C-resident cluster (the source's CLUSTER, chosen there):
+# the cluster launch refuses a schedule of another size
+CLUSTER = 2
 # the tile index's device arrays, in the order of the C interface
 INDEX = ("row_ptr", "g_col", "g_val", "d_ptr", "d_kt", "d_a", "order")
+# the cluster schedule's device arrays, in the order of the C interface
+CLUSTER_INDEX = ("c_rt", "c_ptr", "s_kt", "s_tile", "c_order")
 
 
 def _bind(lib) -> None:
@@ -35,9 +43,16 @@ def _bind(lib) -> None:
         [ctypes.c_void_p] * (len(INDEX) + 1) + [ctypes.c_int, ctypes.c_void_p]
         + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.tile_owner_spmm.restype = ctypes.c_int
-    lib.chunk_spmm_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.chunk_spmm_blocks_per_sm.restype = ctypes.c_int
+    lib.cres_cluster_spmm.argtypes = (
+        [ctypes.c_void_p] * (len(INDEX) + len(CLUSTER_INDEX) + 1)
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.cres_cluster_spmm.restype = ctypes.c_int
+    for name in ("chunk_spmm_blocks_per_sm", "cres_cluster_max_active"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        getattr(lib, name).restype = ctypes.c_int
     lib.chunk_spmm_error_string.argtypes = [ctypes.c_int]
     lib.chunk_spmm_error_string.restype = ctypes.c_char_p
 
@@ -61,12 +76,17 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
-           tk: int, split2: bool) -> torch.Tensor:
-    """Launch the routine on the current stream for the entry named
-    ``entry``: C (m, n) f32 from the tile index ``idx`` (:data:`INDEX`, on
-    b's device), at the 2-term tier when ``split2``.  Raises on what the
-    kernel does not take and on a refused launch."""
+def column_tile(num_tiles: int, n: int, sms: int) -> int:
+    """The routine's column tile for a grid (chunk_spmm.cu: launch_routine):
+    128, or 64 when 128-column blocks would be fewer than the SMs."""
+    wide, narrow = COLUMN_TILES[1], COLUMN_TILES[0]
+    return wide if num_tiles * -(-n // wide) >= sms else narrow
+
+
+def _checked(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
+             tk: int, split2: bool) -> tuple:
+    """Refuse what the routine does not take, before any launch; (row
+    tiles, dense tiles) of the index."""
     check_shape(tm)
     if b.device.type != "cuda":
         raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
@@ -90,6 +110,16 @@ def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
             n_dense, -(-tm // WARP_ROWS) * WARP_ROWS, tk)):
         raise ValueError(f"{entry}: dense tiles need tile_k % {KC} == 0, "
                          "no split2, and (tiles, round_up(tm, 16), tk) A")
+    return num_tiles, n_dense
+
+
+def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
+           tk: int, split2: bool) -> torch.Tensor:
+    """Launch the owner routine on the current stream for the entry named
+    ``entry``: C (m, n) f32 from the tile index ``idx`` (:data:`INDEX`, on
+    b's device), at the 2-term tier when ``split2``.  Raises on what the
+    kernel does not take and on a refused launch."""
+    num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
     lib = load()
     k, n = b.shape
     # the ctypes launch goes to the current device: make it b's
@@ -104,13 +134,67 @@ def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
     return out
 
 
+def launch_cluster(entry: str, idx: dict, sched: dict, b: torch.Tensor,
+                   m: int, tm: int, tk: int, split2: bool,
+                   issues: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the C-resident cluster kernel on the current stream for the
+    entry named ``entry``: as :func:`launch`, with the cluster schedule
+    ``sched`` (:data:`CLUSTER_INDEX`, on b's device; ``c_rt`` (clusters,
+    R), ``s_tile`` (steps, R)).  ``issues``, a one-element int32 tensor on
+    b's device or None (serving), counts the multicast B chunks.  Raises
+    on what the kernel does not take and on a refused launch (a schedule
+    of another R than the build's CLUSTER among them)."""
+    num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
+    for name in CLUSTER_INDEX:
+        t = sched[name]
+        if (t.device != b.device or not t.is_contiguous()
+                or t.dtype != torch.int32):
+            raise ValueError(f"{entry}: {name} must be a contiguous int32 "
+                             f"tensor on {b.device}")
+    c_rt, s_tile = sched["c_rt"], sched["s_tile"]
+    clusters, cluster = c_rt.shape
+    steps = sched["s_kt"].numel()
+    if (clusters * cluster < num_tiles or sched["c_ptr"].numel()
+            != clusters + 1 or sched["c_order"].numel() != clusters
+            or tuple(s_tile.shape) != (steps, cluster)):
+        raise ValueError(f"{entry}: the cluster schedule is not over the "
+                         f"index's {num_tiles} row tiles")
+    if issues is not None and (
+            issues.device != b.device or issues.dtype != torch.int32
+            or issues.numel() != 1):
+        raise ValueError(f"{entry}: issues must be one int32 on {b.device}")
+    lib = load()
+    k, n = b.shape
+    with torch.cuda.device(b.device):
+        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
+        rc = lib.cres_cluster_spmm(
+            *(idx[name].data_ptr() for name in INDEX),
+            *(sched[name].data_ptr() for name in CLUSTER_INDEX),
+            issues.data_ptr() if issues is not None else None, cluster,
+            clusters, b.data_ptr(), int(b.dtype == torch.bfloat16),
+            out.data_ptr(), num_tiles, m, k, n, tm, tk, n_dense, int(split2),
+            _sm_count(b.device),
+            torch.cuda.current_stream(b.device).cuda_stream)
+    cuda_build.check_launch(lib, "chunk_spmm_error_string", entry, rc)
+    return out
+
+
 def blocks_per_sm(b_bf16: bool, wide: bool, split2: bool) -> int:
-    """Blocks of one instantiation an SM holds at once (the occupancy
-    calculator on the current device), for a record."""
+    """Blocks of one instantiation of the owner routine an SM holds at once
+    (the occupancy calculator on the current device), for a record."""
+    return _occupancy("chunk_spmm_blocks_per_sm", b_bf16, wide, split2)
+
+
+def max_active_clusters(b_bf16: bool, wide: bool, split2: bool) -> int:
+    """Clusters of one instantiation of the cluster launch the current
+    device holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    return _occupancy("cres_cluster_max_active", b_bf16, wide, split2)
+
+
+def _occupancy(name: str, b_bf16: bool, wide: bool, split2: bool) -> int:
     lib = load()
     err = ctypes.c_int(0)
-    blocks = lib.chunk_spmm_blocks_per_sm(int(b_bf16), int(wide),
-                                          int(split2), ctypes.byref(err))
-    cuda_build.check_launch(lib, "chunk_spmm_error_string",
-                            "chunk_spmm_blocks_per_sm", err.value)
-    return blocks
+    count = getattr(lib, name)(int(b_bf16), int(wide), int(split2),
+                               ctypes.byref(err))
+    cuda_build.check_launch(lib, "chunk_spmm_error_string", name, err.value)
+    return count

@@ -9,19 +9,25 @@ fetched once:
 - kloop (K5b): one grid step per k tile, looping over exactly that tile's
   chunks (no sentinels); the split tiers only.
 
-On the card (``csrc/chunk_spmm.cu``, ``cres_chunk_spmm`` and
-``cres_kloop_chunk_spmm``) nothing carries over between blocks, so each
-output tile has one owner block (the tile-owner routine of K3) that keeps
-its sums in registers and stores once; C lives in device memory, written
-once.  Both k-major layouts list each row tile's chunks in ascending k
-tile, the row-major plan's order, so the owner reads K3's tile index
-(:func:`tile_spmm.index_arrays`): K5a, K5b and K3 are one routine on the
-card, with bit-identical outputs, under three entries and counters.  K5's
-own mechanism, one B panel read serving every chunk of its k tile, holds
-at the scale of one owner: a dense tile's panel is staged once for all of
-its chunks.  Sharing a panel across row tiles (cluster multicast) is later
-work (ROADMAP Queue 2).  The k-major layouts serve the plain versions,
-which walk them in the TPU's grid order.
+On the card (``csrc/chunk_spmm.cu``, C entry ``cres_cluster_spmm``,
+entered as ``cres_chunk_spmm`` and ``cres_kloop_chunk_spmm``) nothing
+carries over between blocks, so each output tile has one owner block that
+keeps its sums in registers and stores once; C lives in device memory,
+written once.  Both k-major layouts list each row tile's chunks in
+ascending k tile, the row-major plan's order, so the owners read K3's tile
+index (:func:`tile_spmm.index_arrays`).  K5's own mechanism, one read of a
+k tile's B panel serving the chunks of many row tiles, is the launch: the
+owners of CLUSTER consecutive row tiles (``chunk_cuda.CLUSTER``) of one
+column tile form a thread-block cluster, walk the ascending union of their
+dense k tiles (:func:`cluster_schedule`, built once per plan) and take
+each KC-row chunk of a panel from one multicast bulk copy, issued once for
+the cluster; a chunk a bulk copy cannot move (B rows not 16-byte aligned,
+rows past K or columns past N) each member with a tile there stages
+itself.  Each member still runs its own dense tiles in ascending k tile
+and then the gather, K3's sum order, so K5a, K5b and K3 give the same
+bits; at "split2" the index has no dense tile and the launch gathers
+only.  The k-major layouts serve the plain versions, which walk them in
+the TPU's grid order.
 
 **Admission on the card** (a planning rule, kept from the first port so
 that every route stays as it was).  It reads what must be resident as one
@@ -43,8 +49,8 @@ from tpuspmm_torch.formats.tiles import TilePlan, plan_from_container
 from tpuspmm_torch.kernels import chunk_cuda
 from tpuspmm_torch.kernels.csr_vmem import COLUMN_TILE, smem_optin
 from tpuspmm_torch.kernels.tile_spmm import (check_mode, check_operand,
-                                             dense_min, index_arrays,
-                                             walk_plain)
+                                             dense_min, host_index,
+                                             index_arrays, walk_plain)
 
 SCHEDULES = ("auto", "block8", "kloop")
 
@@ -147,15 +153,123 @@ def cres_spmm_plain(plan: TilePlan, b: torch.Tensor, mode: str = "split",
     return out[:plan.shape[0]]
 
 
+def build_cluster_schedule(index: dict, num_row_tiles: int,
+                           cluster: int) -> dict:
+    """The cluster launch's schedule (numpy) of a tile index
+    (:func:`tile_spmm.build_tile_index`): row tiles grouped ``cluster`` at
+    a time, consecutively, the last group padded with members of row tile
+    -1 (``c_rt``, (clusters, cluster)); per cluster the ascending union of
+    its members' dense k tiles, its steps (``s_kt``, ranges ``c_ptr``);
+    per (step, member) that member's dense tile, or -1 (``s_tile``,
+    (steps, cluster)); the clusters by nonzeros, most first (``c_order``,
+    stable).  For records: ``shared_steps``, the steps two or more members
+    share."""
+    nrt = num_row_tiles
+    clusters = max(1, -(-nrt // cluster))
+    c_rt = np.full(clusters * cluster, -1, np.int32)
+    c_rt[:nrt] = np.arange(nrt)
+    d_ptr, d_kt = index["d_ptr"], index["d_kt"].astype(np.int64)
+    t_rt = np.repeat(np.arange(nrt), np.diff(d_ptr))  # row tile of a tile
+    kts = int(d_kt.max(initial=0)) + 1
+    # the steps: distinct (cluster, k-tile) pairs, in ascending order
+    keys, t_step = np.unique(t_rt // cluster * kts + d_kt,
+                             return_inverse=True)
+    s_tile = np.full((len(keys), cluster), -1, np.int32)
+    s_tile[t_step, t_rt % cluster] = np.arange(len(d_kt))
+    work = np.bincount(index["tile_rt"], weights=index["tile_nnz"],
+                       minlength=nrt)
+    c_work = np.bincount(np.arange(nrt) // cluster, weights=work,
+                         minlength=clusters)
+    return {
+        "c_rt": c_rt.reshape(clusters, cluster),
+        "c_ptr": np.searchsorted(keys // kts, np.arange(clusters + 1)).astype(
+            np.int32),
+        "s_kt": (keys % kts).astype(np.int32), "s_tile": s_tile,
+        "c_order": np.argsort(-c_work, kind="stable").astype(np.int32),
+        "cluster": cluster, "clusters": clusters,
+        "shared_steps": int(((s_tile >= 0).sum(axis=1) >= 2).sum()),
+    }
+
+
+def cluster_schedule(plan: TilePlan, min_dense: float,
+                     cluster: int | None = None) -> dict:
+    """The cluster schedule of ``plan``'s tile index at ``min_dense``, for
+    clusters of ``cluster`` row tiles (``chunk_cuda.CLUSTER`` by default),
+    built once and cached on the plan."""
+    cluster = cluster or chunk_cuda.CLUSTER
+    return plan.derived(("cluster_schedule", min_dense, cluster),
+                        lambda: build_cluster_schedule(
+                            host_index(plan, min_dense), plan.num_row_tiles,
+                            cluster))
+
+
+def schedule_arrays(plan: TilePlan, device, min_dense: float,
+                    cluster: int | None = None) -> dict:
+    """The cluster schedule's device arrays (``chunk_cuda.CLUSTER_INDEX``),
+    transferred once per plan, threshold, cluster size and device."""
+    cluster = cluster or chunk_cuda.CLUSTER
+    return plan.device_arrays(
+        device, ("cluster_schedule", min_dense, cluster),
+        lambda: {k: cluster_schedule(plan, min_dense, cluster)[k]
+                 for k in chunk_cuda.CLUSTER_INDEX})
+
+
+def b_traffic(plan: TilePlan, b: torch.Tensor, min_dense: float, sms: int,
+              cluster: int | None = None) -> dict:
+    """What the dense path moves of B in one launch on ``b``, reckoned from
+    the tile index and the cluster schedule: the KC-row chunks of B panels
+    staged by the owner routine (each dense tile's, for each column tile)
+    and by the cluster launch (a chunk that lies inside B once for the
+    cluster, by multicast, where B's rows are 16-byte aligned; else once
+    for each member with a tile at the step), the multicast issues among
+    them, the bytes of B each reads (rows < K, columns < N), and which copy
+    stages B (``b_copy``)."""
+    index = host_index(plan, min_dense)
+    sched = cluster_schedule(plan, min_dense, cluster)
+    k, n = int(b.shape[0]), int(b.shape[1])
+    esize = b.element_size()
+    tn = chunk_cuda.column_tile(plan.num_row_tiles, n, sms)
+    bulk = b.data_ptr() % 16 == 0 and n * esize % 16 == 0
+    kc = np.arange(0, plan.tile_k, chunk_cuda.KC)
+    c0 = np.arange(0, n, tn)
+    cols = np.minimum(tn, n - c0)  # each column tile's columns in B
+
+    def rows(kts):
+        """(k-tiles, chunks): each chunk's rows inside B."""
+        r0 = np.asarray(kts, np.int64)[:, None] * plan.tile_k + kc
+        return np.clip(k - r0, 0, chunk_cuda.KC)
+
+    own, st = rows(index["d_kt"]), rows(sched["s_kt"])
+    multicast = bulk & (st == chunk_cuda.KC)[..., None] & (c0 + tn <= n)
+    members = (sched["s_tile"] >= 0).sum(axis=1)
+    times = np.where(multicast, 1, members[:, None, None])
+    issues = int(multicast.sum())
+    copy = ("none (no dense tile)" if not own.size
+            else "member plain loads (B rows not 16-byte aligned)"
+            if not bulk else "multicast" if issues == times.sum()
+            else "multicast, edge chunks by member cp.async")
+    return {"cluster": sched["cluster"], "clusters": sched["clusters"],
+            "shared_steps": sched["shared_steps"], "column_tile": tn,
+            "b_copy": copy, "multicast_issues": issues,
+            "owner_stagings": int(own.size * len(c0)),
+            "cluster_stagings": int(times.sum()),
+            "b_panel_bytes": {
+                "owner": int(own.sum()) * int(cols.sum()) * esize,
+                "cluster": int((st[..., None] * cols * times).sum())
+                * esize}}
+
+
 def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
-              schedule: str = "auto") -> torch.Tensor:
+              schedule: str = "auto", *,
+              issues: torch.Tensor | None = None) -> torch.Tensor:
     """Container- or plan-level entry of the C-resident kernels.
 
     ``schedule``: "block8" (K5a, all tiers), "kloop" (K5b, "split" and
     "split2" only, as in the JAX package), or "auto" (block8, as there).
-    On a CUDA tensor it launches ``cres_chunk_spmm`` /
-    ``cres_kloop_chunk_spmm`` or raises; on a CPU tensor it runs
-    :func:`cres_spmm_plain`."""
+    On a CUDA tensor it launches the cluster kernel as ``cres_chunk_spmm``
+    / ``cres_kloop_chunk_spmm`` or raises; ``issues`` (one int32 on b's
+    device, or None) counts its multicast B chunks.  On a CPU tensor it
+    runs :func:`cres_spmm_plain`."""
     split2 = check_mode(mode)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got "
@@ -178,19 +292,22 @@ def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
         return cres_spmm_plain(plan, b, mode, schedule)
     entry = ("cres_chunk_spmm" if schedule == "block8"
              else "cres_kloop_chunk_spmm")
-    out = chunk_cuda.launch(
-        entry, index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
-        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
+    min_dense = dense_min(plan.tile_k, split2)
+    out = chunk_cuda.launch_cluster(
+        entry, index_arrays(plan, b.device, min_dense),
+        schedule_arrays(plan, b.device, min_dense), b.contiguous(),
+        plan.shape[0], plan.tile_m, plan.tile_k, split2, issues)
     counter = spmm_cres if schedule == "block8" else spmm_cres_kloop
     counter.launches += 1
     return out
 
 
-def spmm_cres_kloop(a_or_plan, b: torch.Tensor,
-                    mode: str = "split") -> torch.Tensor:
+def spmm_cres_kloop(a_or_plan, b: torch.Tensor, mode: str = "split", *,
+                    issues: torch.Tensor | None = None) -> torch.Tensor:
     """K5b's own entry: :func:`spmm_cres` with ``schedule="kloop"``.  Its
     ``launches`` counts the kloop kernel's launches through either."""
-    return spmm_cres(a_or_plan, b, mode=mode, schedule="kloop")
+    return spmm_cres(a_or_plan, b, mode=mode, schedule="kloop",
+                     issues=issues)
 
 
 spmm_cres.launches = 0
