@@ -84,22 +84,26 @@ Prints one JSON object per phase:
    runs: large_25605 w256 in f32 and bf16 with the default config, and
    again with the panel strip count pinned (``Config(panel_strips=16)``),
    one record in bench.py's shape each; then the corpus dirs large_15120,
-   large_21074, medium_2048 and medium_4096, each checked at the gate and
-   timed beside cuSPARSE on the same operand.
+   large_21074, medium_2048 and medium_4096, each served by the route
+   ``dispatch.route`` names (panel, pair or densify under the routing
+   row), checked at the gate and timed beside cuSPARSE on the same
+   operand.
    The counts are read as this path's launches.  Then the BSR serving
    path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
    in f32 and bf16, each served by K6 and by no other kernel, at the gate;
-   the 4 x 4 weight at 10% block density routes to densify (packing
-   refused, as in the JAX package), at the gate.  Under the cost
+   the 4 x 4 weight at 10% block density (packing refused, as in the
+   JAX package) served by the route ``dispatch.route`` names under the
+   routing row, launching that route's kernel alone (none for densify),
+   at the gate.  Under the cost
    constants fitted on the H100 (``kernels/dispatch.py``) the default
-   config serves panel on every dir, so the pair kernel is served on
-   medium_2048 with the panel strip count pinned (``Config(panel_strips=
-   16)``), which prices panel above pair.  After the window, one
-   ``model_fit`` record per dir the default config serves by panel or
-   pair (the headline, the four corpus dirs and medium_4000, at their
-   widths): the panel and pair geometries the model resolves, each one's
-   modelled ``cost_us`` beside its device time, which one the model
-   serves, and the geometry the unfitted constants (step and strip 0,
+   config never prices pair below panel, so the pair kernel is served
+   on PAIR_SERVED (large_15120) with the panel strip count pinned
+   (``Config(panel_strips=16)``), which prices panel above pair.  After
+   the window, one ``model_fit`` record per dir the default config
+   serves by panel or pair (of the headline, the four corpus dirs and
+   medium_4000, at their widths): the panel and pair geometries the
+   model resolves, each one's modelled ``cost_us`` beside its device
+   time, which one the model serves, and the geometry the unfitted constants (step and strip 0,
    the data sheet's bandwidth) served, with its device time from the same
    run: data for the next refit and for the fit's effect, not a check.
    The record ``main_path``'s ``hbm_roofline_frac`` is the least bytes
@@ -149,8 +153,9 @@ Prints one JSON object per phase:
    w256 with f32 and bf16 B, whose backward must launch a hand kernel on
    A^T (25605 x 6300) and give a gradient in B's dtype at the gate against
    the f64 oracle of A^T G;
-7. dispatch routes: ``tpuspmm_torch.spmm`` on small_32x32 (densify) and
-   medium_1484 (compensated), each at the gate;
+7. dispatch routes: ``tpuspmm_torch.spmm`` on ROUTE_DIRS (small_32x32,
+   medium_1484), each served by the route ``dispatch.route`` names, at
+   the gate;
 8. entry points: counts zeroed again, the panel and pair entry points on
    the serving corpus, each checked at the gate; counted apart;
 9. extreme-value dirs (medium_1484/2880/4000, large_20000): the route
@@ -210,6 +215,16 @@ Prints one JSON object per phase:
    rank in a process of its own) at the gate.  The tile, staged,
    C-resident, panel and stream kernels must have launched in the window
    (the ranks' launches come back in their records);
+10d. the routing row (``kernels/dispatch.H100_FIT``, fitted by
+   ``tools/fit_routing.py``): on ROUTING_OPERANDS (the 4 x 4 and
+   128 x 128 pruned weights at 90% as CSR w512, f32 and bf16 B; the
+   uniform 2048 x 2048 at densities 0.016 and 0.1, w1024; large_21074
+   w512) the route ``tpuspmm_torch.spmm`` serves must be the one
+   ``dispatch.route`` names and pass the gate; its time, and both sides
+   of the constant that decides the operand (densify_min_density; for
+   large_21074 tile_min_nnz_per_chunk, panel and densify refused), each
+   served, gated and timed, with which side the row takes and the ratio
+   of the two times (reported, not required);
 11. the kernels line (all seven kernels and the stream kernel, with the
    least time the card could take for the work, ``bound_ms``, the library
    call's time, the tuned window's launches, ``tuned_launches``, the
@@ -250,7 +265,8 @@ HEADLINE = "large_25605"
 WIDTH = 256
 MAIN_CORPUS = ("large_15120", "large_21074", "medium_2048", "medium_4096")
 # the serving dir a pinned P (Config(panel_strips=16)) sends to pair
-PAIR_SERVED = "medium_2048"
+# (at its on-disk width, 12600; medium_2048 densifies under the routing row)
+PAIR_SERVED = "large_15120"
 # the dir outside MAIN_CORPUS whose default serve is panel / pair: its
 # model_fit record (its values are extreme, so it is not held to the gate)
 FIT_EXTRA = "medium_4000"
@@ -259,7 +275,7 @@ EXTREME_CORPUS = ("medium_1484", "medium_2880", "medium_4000", "large_20000")
 # density, seed), and B as bench/pruned_llm.py draws it
 PRUNED = {"a": (4096, 4096, (128, 128), 0.1, 0),
           "b": (4096, 4096, (8, 128), 0.02, 1)}
-PRUNED_4X4_DENSIFY = (4096, 4096, (4, 4), 0.1, 0)
+PRUNED_4X4 = (4096, 4096, (4, 4), 0.1, 0)
 # block shapes and widths the pruned weights do not reach, K6 against its
 # plain version only: (rows, cols, block, block density, seed, B width).
 # Row sub-tiles of 8 where 32 does not divide bh, bh above 128 (split into
@@ -315,7 +331,18 @@ ENGINE_RUNS = (
     ["--auto", "-d", HEADLINE, "--width", str(WIDTH)],
     ["--auto", "-d", PRUNED_DIR],
 )
-ROUTES = {"small_32x32": "densify", "medium_1484": "exact"}
+# phase 7: dirs whose serve is held to the route dispatch.route names
+ROUTE_DIRS = ("small_32x32", "medium_1484")
+# phase 10d: (operand, B dtypes, the routing constant whose two sides are
+# timed); the pruned weights as CSR at PRUNED_WIDTH, the uniform 2048²
+# (values U(-1, 1)) at w1024, large_21074 at PRUNED_WIDTH
+ROUTING_OPERANDS = (("pruned_4x4_s0.9", ("f32", "bf16"),
+                     "densify_min_density"),
+                    ("pruned_128x128_s0.9", ("f32", "bf16"),
+                     "densify_min_density"),
+                    ("uniform_2048_d0.016", ("f32",), "densify_min_density"),
+                    ("uniform_2048_d0.1", ("f32",), "densify_min_density"),
+                    ("large_21074", ("f32",), "tile_min_nnz_per_chunk"))
 # the sweeps phase: the corpus dirs it sweeps at their on-disk B
 # (large_25605 synthesises 512 columns; the whole corpus runs as its own
 # call, README), the sparsity sweep's size (the reference's) and densities
@@ -926,6 +953,70 @@ def tools_phase(gpu: str, card: str) -> dict:
             "weak": weak}
 
 
+def routing_row_phase(gpu: str, card: str) -> None:
+    """Phase 10d: the dispatcher's routing row on ROUTING_OPERANDS.  Each
+    is served by ``tpuspmm_torch.spmm`` under the row: the route it took
+    must be the one ``dispatch.route`` names and must pass the gate
+    against an f64 product.  Then both sides of the constant that decides
+    it (``tools/fit_routing.py``'s records: the route with the constant
+    moved below the operand and past it), each served, gated and timed;
+    the record says which side the row takes and how the two times
+    compare, and asserts nothing about which is faster."""
+    import tpuspmm_torch
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import convert
+    from tpuspmm_torch.kernels import dispatch
+    from tpuspmm_torch.tools import fit_routing as fr
+    from tpuspmm_torch.utils.compare import allclose
+    from tpuspmm_torch.utils.timing import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    power = card.split(",")[-1].strip()
+    meas = fr.Measurer("cuda", lambda fn: cuda_time_ms(fn, warmup=3,
+                                                       iters=fr.SERVES),
+                       graph=True, card=card)
+    row = dispatch.thresholds("cuda")
+    for name, dtypes, constant in ROUTING_OPERANDS:
+        if name.startswith("pruned_"):
+            block, s = name[len("pruned_"):].split("_s")
+            a = fr.pruned(int(block.split("x")[0]), float(s))
+            b_np = fr.b_pruned(a.shape[1], PRUNED_WIDTH)
+        elif name.startswith("uniform_"):
+            n, d = name[len("uniform_"):].split("_d")
+            a = fr.uniform(int(n), float(d))
+            b_np = fr.b_uniform(int(n), 1024)
+        else:
+            a = convert.load_sparse(data_dir(name), "csr")
+            b_np = np.asarray(convert.load_dense(
+                data_dir(name), width=PRUNED_WIDTH).data, np.float32)
+        for dtype in dtypes:
+            b = torch.from_numpy(b_np).cuda().to(fr.B_DTYPES[dtype])
+            route = dispatch.route(a, b)
+            out, served = fr.served_route(lambda: tpuspmm_torch.spmm(a, b))
+            gate = allclose(out, fr.reference(a, b))
+            check(served == route, f"{name} {dtype}: spmm served {served}, "
+                                   f"dispatch.route names {route}")
+            check(gate, f"{name} {dtype}: served {route} at the gate")
+            del out
+            ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b))
+            rec, = fr.both_sides(meas, constant, name, a, b_np, (dtype,))
+            side = ("on" if fr.admits(constant, rec["x"], row[constant])
+                    else "off")
+            other = {"on": "off", "off": "on"}[side]
+            fields = {"same_route": rec["same_route"]} \
+                if "same_route" in rec else {
+                    "row_side": rec[side], "other_side": rec[other],
+                    "row_over_other_ms": rec[side]["ms"] / rec[other]["ms"]}
+            emit("routing_row", operand=name, b_dtype=dtype,
+                 width=int(b.shape[1]), served=route, ms=ms, gate=gate,
+                 constant=constant, row_value=row[constant], x=rec["x"],
+                 **fields, gpu=gpu, power_limit=power)
+            del b
+        del a
+        torch.cuda.empty_cache()
+    emit("routing_row_phase", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -955,6 +1046,7 @@ def main() -> int:
                                        strip_cuda, tile_spmm)
     from tpuspmm_torch.kernels.common import round_up, split_bf16
     from tpuspmm_torch.ops import exact, oracle, vendor
+    from tpuspmm_torch.tools import fit_routing
     from tpuspmm_torch.utils import profiling, timing
     from tpuspmm_torch.utils.compare import allclose, max_abs_err
     from tpuspmm_torch.utils.timing import card_line, cuda_time_ms
@@ -1686,10 +1778,15 @@ def main() -> int:
         ca, cdense = load(name)
         check(not (exact.needs_compensated(ca)
                    and exact.exact_admissible(ca)),
-              f"{name} is served by the panel / pair path")
+              f"{name} is not served by the compensated path")
         b = torch.from_numpy(cdense.data).to(dev)
         ref = oracle.spmm_scipy_oracle(ca, cdense.data)
-        out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b))
+        # the route the routing row gives (panel, pair or densify here)
+        out, served = fit_routing.served_route(
+            lambda: tpuspmm_torch.spmm(ca, b))
+        check(served == dispatch.route(ca, b),
+              f"{name} served {served}, dispatch.route names "
+              f"{dispatch.route(ca, b)}")
         check(allclose(out, ref), f"{name} dispatch gate")
         ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b))
         # the library call on the same operand, timed here only
@@ -1704,8 +1801,8 @@ def main() -> int:
         del out
 
     # the pair kernel on the serving path: under the fitted constants the
-    # default config serves panel on every dir; a pinned P on medium_2048
-    # (B 2048 wide) prices panel above pair's search
+    # default config never prices pair below panel; a pinned P on
+    # PAIR_SERVED prices panel above pair's search
     ca, b, ref = corpus[PAIR_SERVED]
     pinned = Config(panel_strips=16)
     out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b, config=pinned))
@@ -1739,6 +1836,8 @@ def main() -> int:
     fit_a, fit_b = load(FIT_EXTRA)
     fit_dirs = {HEADLINE: (a, b32), **{n: corpus[n][:2] for n in MAIN_CORPUS},
                 FIT_EXTRA: (fit_a, torch.from_numpy(fit_b.data).to(dev))}
+    fit_dirs = {n: (ca, b) for n, (ca, b) in fit_dirs.items()
+                if dispatch.route(ca, b) in ("panel", "pair")}
 
     def timed_geometry(ca, b, kname, g, n_pad) -> dict:
         plan = plan_of(ca, kname, g, n_pad)
@@ -1795,15 +1894,17 @@ def main() -> int:
                  ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(w, b)),
                  gpu=gpu, power_limit=card.split(",")[-1].strip())
             del out
-    w4 = BSR.random_blocks(*PRUNED_4X4_DENSIFY)
+    w4 = BSR.random_blocks(*PRUNED_4X4)
     check(bsr_spmm.pack_blocks(w4) is None, "4x4 weight: packing refused")
     got_route = dispatch.route(w4, pb32)
-    check(got_route == "densify", f"4x4 weight routes to densify "
-                                  f"({got_route})")
-    out, ran = launched_by(lambda: tpuspmm_torch.spmm(w4, pb32))
-    check(ran == [], f"densify launched no hand kernel ({ran})")
+    (out, ran), served = fit_routing.served_route(
+        lambda: launched_by(lambda: tpuspmm_torch.spmm(w4, pb32)))
+    check(served == got_route, f"4x4 weight served {served}, "
+                               f"dispatch.route names {got_route}")
+    check(ran == ([got_route] if got_route in all_counters else []),
+          f"the {got_route} route launched {ran}")
     gate = allclose(out, oracle.spmm_oracle(w4, pb32.cpu().numpy()))
-    check(gate, "4x4 weight densify gate vs f64 oracle")
+    check(gate, f"4x4 weight {got_route} gate vs f64 oracle")
     emit("bsr_main_path", weight="4x4_d10", b_dtype="f32", kernel=got_route,
          gate=gate, stored_nnz=w4.nnz, sparsity=w4.sparsity,
          ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(w4, pb32)))
@@ -2131,14 +2232,16 @@ def main() -> int:
     emit("tuned_phase", seconds=time.perf_counter() - t_tuned)
 
     # ---- 7. dispatch routes ----------------------------------------------
-    for name, want in ROUTES.items():
+    for name in ROUTE_DIRS:
         ra, rdense = load(name)
         rb = torch.from_numpy(rdense.data).to(dev)
         got_route = dispatch.route(ra, rb)
-        check(got_route == want, f"{name} routes to {want} ({got_route})")
-        out = tpuspmm_torch.spmm(ra, rb)
+        out, served = fit_routing.served_route(
+            lambda: tpuspmm_torch.spmm(ra, rb))
+        check(served == got_route, f"{name} served {served}, "
+                                   f"dispatch.route names {got_route}")
         gate = allclose(out, oracle.spmm_scipy_oracle(ra, rdense.data))
-        check(gate, f"{name} {want} route gate vs f64 oracle")
+        check(gate, f"{name} {got_route} route gate vs f64 oracle")
         emit("dispatch_route", testcase=name, route=got_route, gate=gate,
              bCols=int(rb.shape[1]),
              ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(ra, rb)))
@@ -2235,6 +2338,9 @@ def main() -> int:
     # ---- 10c. tools: entry(), profile_variants, hbm_control, weak_scaling --
     tools = tools_phase(gpu, card)
     tools_launches = tools["launches"]
+
+    # ---- 10d. the dispatcher's routing row ------------------------------
+    routing_row_phase(gpu, card)
 
     # ---- 11. kernels line, card, ok --------------------------------------
     kernels = {  # name: (entry, source, TPU kernel body it replaces)

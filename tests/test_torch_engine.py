@@ -40,7 +40,7 @@ from tpuspmm_torch.config import Config
 from tpuspmm_torch.data import data_dir
 from tpuspmm_torch.engine import registry, runner
 from tpuspmm_torch.formats import convert
-from tpuspmm_torch.kernels import dispatch, panel_spmm
+from tpuspmm_torch.kernels import dispatch
 from tpuspmm_torch.utils.compare import allclose
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -176,12 +176,9 @@ def test_tile_fallthrough_under_lowered_cap(name, jax_route, jax_constants,
                                             monkeypatch):
     """No panel or pair plan fits: both packages fall through alike; the
     port's tile-family member is the card's residency rule's."""
+    # one row, the cap in it, read by both dispatchers
     monkeypatch.setitem(jax_constants, "panel_max_plan_bytes", 1)
     monkeypatch.setattr(jdispatch, "thresholds", lambda: jax_constants)
-    monkeypatch.setattr(panel_spmm, "PLAN_BYTES_CAP", 1)
-    from tpuspmm_torch.kernels import pair_spmm
-
-    monkeypatch.setattr(pair_spmm, "PLAN_BYTES_CAP", 1)
     a_j, a_t = load(name)
     theirs = jax_route(a_j, 256)
     mine = dispatch.route(a_t, torch.zeros(a_t.shape[1], 256))
@@ -196,11 +193,14 @@ def test_tile_fallthrough_under_lowered_cap(name, jax_route, jax_constants,
 def test_tile_family_serves_at_the_gate(monkeypatch):
     """The fall-through really serves: C-resident, then tile when the
     accumulator rule is refused, each at the gate against the oracle."""
-    from tpuspmm_torch.kernels import cres_spmm, pair_spmm
+    from tpuspmm_torch.kernels import cres_spmm
     from tpuspmm_torch.ops import oracle
 
-    monkeypatch.setattr(panel_spmm, "PLAN_BYTES_CAP", 1)
-    monkeypatch.setattr(pair_spmm, "PLAN_BYTES_CAP", 1)
+    # no panel or pair plan, and no densify (medium_2048 is above the
+    # row's density floor)
+    monkeypatch.setitem(dispatch.H100_FIT, "panel_max_plan_bytes", 1)
+    monkeypatch.setitem(dispatch.H100_FIT, "densify_min_density",
+                        float("inf"))
     _, a = load("medium_2048")
     b = torch.from_numpy(np.random.default_rng(3).uniform(
         -1, 1, (2048, 64)).astype(np.float32))
@@ -461,13 +461,17 @@ def test_bsr_stream_route_matches_jax(args, packed, jax_route,
         assert kind != "bsr_stream"
 
 
-def test_select_format_matches_jax_except_residency():
-    """select_format agrees with JAX's on every data/ dir but where JAX's
-    8 MiB VMEM rule refuses the whole C: there JAX selects the tile kernel
-    and the port, whose rule is one accumulator in shared memory,
+def test_select_format_matches_jax_except_residency(monkeypatch):
+    """select_format agrees with JAX's, both reading the port's row (the
+    densify floor and cap are per chip), on every data/ dir but where
+    JAX's 8 MiB VMEM rule refuses the whole C: there JAX selects the tile
+    kernel and the port, whose rule is one accumulator in shared memory,
     C-resident.  Only large_20000 differs at width 256."""
     from tpuspmm.engine import select as jselect
     from tpuspmm_torch.engine import select
+
+    monkeypatch.setattr(jdispatch, "thresholds",
+                        lambda: dispatch.thresholds("cpu"))
 
     differ = {}
     for name in DIRS:

@@ -1,0 +1,382 @@
+"""The port's routing row (``kernels/dispatch.H100_FIT``) against the JAX
+package's per-chip rows and against the card's records.
+
+- The H100 row has every key of JAX's rows, ``panel_max_plan_bytes``
+  included, and the "cpu" row is the H100 row.
+- ``tools/fit_routing.py``'s fit of the committed ``routing_h100.jsonl``
+  gives the row's routing constants, by the rules its docstring states
+  (held here on synthetic records too).
+- JAX's ``spmm_pallas`` fed the port's row takes the port's route on small
+  operands on each side of every fitted constant, CSR and COO.
+- ``--measure`` needs a card; its measuring code runs on the CPU at a
+  tiny size, each side served by the route the dispatcher names.
+"""
+
+import json
+import os
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from tpuspmm.formats import BSR as JBSR
+from tpuspmm.formats import CSR as JCSR
+from tpuspmm.kernels import bsr_spmm as jk6
+from tpuspmm.kernels import cres_spmm as jk5
+from tpuspmm.kernels import csr_vmem as jk4
+from tpuspmm.kernels import dispatch as jdispatch
+from tpuspmm.kernels import pair_spmm as jpair
+from tpuspmm.kernels import panel_spmm as jpanel
+from tpuspmm.kernels import tile_spmm as jk3
+from tpuspmm.ops import exact as jexact
+from tpuspmm_torch.formats import BSR, CSR
+from tpuspmm_torch.kernels import dispatch
+from tpuspmm_torch.tools import fit_routing as fr
+
+RECORDS = os.path.join(os.path.dirname(fr.__file__), "routing_h100.jsonl")
+ROW = dispatch.H100_FIT
+TILE_FAMILY = ("staged", "cres", "tile")
+
+
+class _Served(Exception):
+    pass
+
+
+@pytest.fixture
+def jax_route(monkeypatch):
+    """The path JAX's spmm_pallas takes under the port's row, recorded at
+    the call that would serve it (nothing is computed)."""
+    served = []
+
+    def recorder(tag):
+        def call(*args, **kwargs):
+            served.append(tag)
+            raise _Served
+        return call
+
+    for mod, attr, tag in ((jexact, "spmm_exact", "exact"),
+                           (jk6, "spmm_bsr_stream", "bsr_stream"),
+                           (jdispatch, "_densify", "densify"),
+                           (jpanel, "spmm_panel", "panel"),
+                           (jpair, "spmm_pair", "pair"),
+                           (jk4, "spmm_staged", "staged"),
+                           (jk5, "spmm_cres", "cres"),
+                           (jk3, "spmm_tiles", "tile"),
+                           (jdispatch, "_spmm_xla_any", "xla")):
+        monkeypatch.setattr(mod, attr, recorder(tag))
+    monkeypatch.setattr(jdispatch, "thresholds",
+                        lambda: dispatch.thresholds("cpu"))
+
+    def route(a, n):
+        served.clear()
+        with pytest.raises(_Served):
+            jdispatch.spmm_pallas(a, np.zeros((a.shape[1], n), np.float32))
+        return served[0]
+    return route
+
+
+def same_route(pair, jax_route, n=64):
+    """The port's route is JAX's under the port's row, CSR and COO; a
+    tile-family member follows the card's residency rule."""
+    a_j, a_t = pair
+    for fmt_j, fmt_t in ((a_j, a_t), (a_j.to_coo(), a_t.to_coo())):
+        mine = dispatch.route(fmt_t, torch.zeros(a_t.shape[1], n))
+        theirs = jax_route(fmt_j, n)
+        if theirs in TILE_FAMILY:
+            k_pad = -(-a_t.shape[1] // 128) * 128
+            assert mine == ("staged" if k_pad <= 768 else "cres")
+        else:
+            assert mine == theirs
+    return mine
+
+
+def pair_of(sp):
+    """(JAX CSR, port CSR) of one scipy matrix."""
+    return JCSR.from_scipy(sp), CSR.from_scipy(sp)
+
+
+def test_h100_row_has_jax_rows_keys():
+    for chip, row in jdispatch._CHIP_THRESHOLDS.items():
+        assert set(ROW) == set(row), chip
+    assert ROW["panel_max_plan_bytes"] == dispatch.thresholds("cpu")[
+        "panel_max_plan_bytes"]
+
+
+def test_cpu_row_is_the_h100_row():
+    assert dispatch.thresholds("cpu") == ROW
+    with mock.patch.object(torch.cuda, "get_device_name",
+                           lambda d=None: "NVIDIA H100 80GB HBM3"):
+        assert dispatch.thresholds("cuda:0") == dispatch.thresholds("cpu")
+    with mock.patch.object(torch.cuda, "get_device_name",
+                           lambda d=None: "Some Other Card"):
+        with pytest.raises(KeyError):
+            dispatch.thresholds("cuda:0")
+
+
+def test_fit_of_the_committed_records_is_the_row(capsys):
+    records = fr.read_records([RECORDS])
+    assert all(r["card"].startswith("NVIDIA H100") for r in records)
+    row, notes = fr.fit(records)
+    assert set(row) == set(fr.CONSTANTS) == set(notes)
+    for key, value in row.items():
+        assert ROW[key] == value, key
+    assert fr.main([RECORDS]) == 0
+    assert json.loads(capsys.readouterr().out)["fitted"] == row
+
+
+def test_records_cover_the_fit_set():
+    """Every operand the docstring names has its records, in both B
+    dtypes, and each record's sides are the routes its constant moves."""
+    records = fr.read_records([RECORDS])
+    ops = {(r["constant"], r["operand"], r["b_dtype"]) for r in records
+           if r["constant"] != "panel_gather_gbps"}
+    for n in fr.UNIFORM_DIMS:
+        for d in fr.DENSITIES:
+            for dt in fr.B_DTYPES:
+                assert ("densify_min_density", f"uniform_{n}_d{d:g}",
+                        dt) in ops
+    for block, s in fr.PRUNED:
+        assert ("densify_min_density", f"pruned_{block}x{block}_s{s:g}",
+                "bf16") in ops
+    for r in fr.TILE_ROW_NNZ:
+        assert ("tile_min_nnz_per_chunk", f"uniform_{fr.TILE_DIM}_r{r}",
+                "f32") in ops
+    assert {r["width"] for r in records
+            if r["constant"] == "panel_gather_gbps"} == set(fr.GATHER_WIDTHS)
+    for r in records:
+        if "on" in r:
+            assert r["on"]["route"] != r["off"]["route"] or \
+                r["constant"] == "panel_max_plan_bytes"
+        if r["constant"] == "densify_min_density" and "on" in r:
+            assert r["on"]["route"] == "densify"
+        if r["constant"] == "tile_min_nnz_per_chunk" and "on" in r:
+            assert r["on"]["route"] in TILE_FAMILY
+            assert r["off"]["route"] == "xla"
+
+
+def test_table_prices_both_rows(capsys):
+    against = "densify_min_density=1,tile_min_nnz_per_chunk=1e9"
+    assert fr.main([RECORDS, "--table", "--against", against]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    summary = {x["constant"]: x for x in lines if "geomean_regret" in x}
+    # the fitted row is never worse than another row on its own records
+    for c in ("densify_min_density", "tile_min_nnz_per_chunk"):
+        assert summary[c]["geomean_regret"] <= \
+            summary[c]["geomean_regret_against"]
+    assert all(x["regret"] >= 1.0 for x in lines if x.get("regret"))
+
+
+# ---- the rules, on synthetic records ----------------------------------
+
+def rec(constant, x, on, off, gate=(True, True), **kw):
+    return {"constant": constant, "operand": kw.pop("operand", "op"),
+            "x": x, "shape": kw.pop("shape", [4, 4]),
+            "on": {"route": "a", "ms": on, "gate": gate[0]},
+            "off": {"route": "b", "ms": off, "gate": gate[1]}, **kw}
+
+
+def test_least_regret_takes_the_crossover_and_ties_to_the_larger():
+    c = "densify_min_density"
+    recs = [rec(c, 0.001, 2.0, 1.0), rec(c, 0.01, 1.0, 2.0),
+            rec(c, 0.1, 1.0, 3.0)]
+    assert fr.least_regret(recs, c) == (0.01, 1.0)
+    # a tie between 0.01 and 0.1 (the 0.01 record's sides are equal)
+    recs[1] = rec(c, 0.01, 1.0, 1.0)
+    assert fr.least_regret(recs, c)[0] == 0.1
+    # a gate miss is never served; both sides missing: not fitted
+    recs = [rec(c, 0.001, 1.0, 5.0, gate=(False, True)),
+            rec(c, 0.01, 1.0, 2.0), rec(c, 0.02, 1.0, 1.0,
+                                        gate=(False, False))]
+    assert fr.least_regret(recs, c) == (0.01, 1.0)
+    assert len(fr.fitted(recs, c)) == 2
+    with pytest.raises(ValueError, match="no usable"):
+        fr.least_regret([], c)
+
+
+def test_densify_cap_and_plan_cap_rules():
+    c = "densify_max_bytes"
+    mib = fr.MIB
+    recs = [rec(c, 64 * mib, 1.0, 2.0), rec(c, 256 * mib, 1.0, 1.5),
+            rec(c, 1024 * mib, 3.0, 1.0)]
+    assert fr.fit_bytes(recs, 0.01)[0] == 256 * mib
+    # densify never least regret: the corpus dirs' dense A at the floor
+    recs = [rec(c, 64 * mib, 2.0, 1.0),
+            rec("densify_min_density", 0.05, 1.0, 2.0, operand="small",
+                shape=[32, 32]),
+            rec("densify_min_density", 0.005, 1.0, 2.0, operand="mid",
+                shape=[64, 64])]
+    cap, how = fr.fit_bytes(recs, 0.01)
+    assert cap == 32 * 32 * 4 and "corpus" in how
+    p = "panel_max_plan_bytes"
+    assert fr.fit_plan_cap([rec(p, 64 * mib, 1.0, 2.0)])[0] == fr.PLAN_CAP
+    assert fr.fit_plan_cap([rec(p, 64 * mib, 1.0, 2.0),
+                            rec(p, 200 * mib, 1.0, 2.0),
+                            rec(p, 300 * mib, 2.0, 1.0)])[0] == 200 * mib
+    assert fr.regret(rec(p, 300 * mib, 2.0, 1.0), 512 * mib) == 2.0
+    assert fr.regret(rec(p, 300 * mib, 2.0, 1.0), 200 * mib) == 1.0
+    assert fr.regret({"constant": p, "x": 1, "same_route": "panel"}, 0) == 1
+
+
+# ---- JAX's dispatcher under the port's row ----------------------------
+
+def uniform_pair(n, density, seed=0):
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    return pair_of(scipy.sparse.random(
+        n, n, density=density, format="csr", random_state=rng,
+        data_rvs=lambda k: rng.uniform(-1, 1, k)))
+
+
+@pytest.mark.parametrize("density", sorted(set(fr.DENSITIES) | {
+    ROW["densify_min_density"] * 0.9, ROW["densify_min_density"] * 1.1}))
+def test_density_sweep_routes_as_jax(density, jax_route):
+    pair = uniform_pair(256, density, seed=3)
+    route = same_route(pair, jax_route)
+    assert (route == "densify") == (pair[1].sparsity
+                                    >= ROW["densify_min_density"])
+
+
+@pytest.mark.parametrize("side", [0.5, 2.0])
+def test_pruned_pattern_routes_as_jax(side, jax_route):
+    """A 256² weight pruned to 4 × 4 blocks, its block density on each
+    side of the floor, served as CSR and COO."""
+    d = min(ROW["densify_min_density"] * side, 1.0)
+    a_j = JBSR.random_blocks(256, 256, (4, 4), d, seed=4).to_csr()
+    a_t = BSR.random_blocks(256, 256, (4, 4), d, seed=4).to_csr()
+    route = same_route((a_j, a_t), jax_route)
+    assert (route == "densify") == (side > 1)
+
+
+@pytest.mark.parametrize("side", [0.5, 2.0])
+def test_densify_cap_routes_as_jax(side, jax_route):
+    """Dense A on each side of the cap, above the floor: 64 rows of
+    cap · side / 256 columns, each row's nonzeros in a band of its own."""
+    import scipy.sparse
+
+    rows = 64
+    cols = int(ROW["densify_max_bytes"] * side / (rows * 4))
+    per_row = int(np.ceil(ROW["densify_min_density"] * cols * 1.5))
+    r = np.repeat(np.arange(rows), per_row)
+    c = (r * per_row + np.tile(np.arange(per_row), rows)) % cols
+    vals = np.random.default_rng(5).uniform(-1, 1, r.size)
+    pair = pair_of(scipy.sparse.csr_matrix((vals, (r, c)),
+                                           shape=(rows, cols)))
+    assert pair[1].sparsity >= ROW["densify_min_density"]
+    route = same_route(pair, jax_route, n=1)
+    assert (route == "densify") == (side < 1)
+
+
+@pytest.mark.parametrize("side", [0.5, 0.9, 1.1, 2.0])
+def test_tile_threshold_routes_as_jax(side, jax_route, monkeypatch):
+    """Nonzeros per tile-plan chunk on each side of the tile threshold,
+    with the row's plan cap at 1 in both packages (no panel or pair plan)
+    and a density under the floor: each 128-row tile holds its nonzeros
+    in one 128-column tile."""
+    import scipy.sparse
+
+    monkeypatch.setitem(ROW, "panel_max_plan_bytes", 1)
+    t = ROW["tile_min_nnz_per_chunk"] * side
+    per_tile = max(int(np.ceil(t) if side > 1 else np.floor(t)), 1)
+    n, t = 2048, 128
+    rng = np.random.default_rng(6)
+    r, c = [], []
+    for i in range(n // t):
+        cells = rng.choice(t * t, per_tile, replace=False)
+        r.append(i * t + cells // t)
+        c.append(((i * 5) % (n // t)) * t + cells % t)
+    r, c = np.concatenate(r), np.concatenate(c)
+    sp = scipy.sparse.csr_matrix((rng.uniform(-1, 1, r.size), (r, c)),
+                                 shape=(n, n))
+    pair = pair_of(sp)
+    assert pair[1].sparsity < ROW["densify_min_density"]
+    x = fr.nnz_per_chunk(pair[1])
+    assert (x >= ROW["tile_min_nnz_per_chunk"]) == (side > 1)
+    route = same_route(pair, jax_route)
+    assert (route in TILE_FAMILY) == (x >= ROW["tile_min_nnz_per_chunk"])
+
+
+# ---- --measure ---------------------------------------------------------
+
+def test_measure_needs_a_card(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "r.jsonl"
+    assert fr.main(["--measure", "--out", str(out)]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_measuring_code_on_the_cpu():
+    """Every group at a tiny size on the CPU (host clock): each side is
+    served by the route the dispatcher names (``served_route`` raises
+    otherwise), at the gate, and the fit reads the records."""
+    meas = fr.Measurer("cpu", lambda fn: fr.host_time_ms(fn, iters=2),
+                       graph=False, card="cpu")
+    recs = list(fr.density_records(
+        meas, dims=(128,), widths=(16,), densities=(0.002, 0.1),
+        pruned_set=((4, 0.9),), pruned_dim=128, with_corpus=False))
+    recs += list(fr.tile_records(meas, dim=512, row_nnz=(2, 64),
+                                 widths=(16,), with_corpus=False))
+    recs.append(meas.gather(300, fr.GATHER_WIDTHS[0]))
+    floor, _ = fr.least_regret(recs, "densify_min_density")
+    recs += list(fr.bytes_records(meas, floor, dims=(128,),
+                                  densities=(0.002, 0.1), width=16))
+    by = {}
+    for r in recs:
+        by.setdefault(r["constant"], []).append(r)
+        for side in ("on", "off"):
+            if side in r:
+                assert r[side]["gate"] and r[side]["ms"] > 0
+    assert [r["on"]["route"] for r in by["densify_min_density"]] == \
+        ["densify"] * 6
+    assert {r["off"]["route"] for r in by["tile_min_nnz_per_chunk"]} == \
+        {"xla"}
+    assert {r["on"]["route"] for r in by["tile_min_nnz_per_chunk"]} <= \
+        set(TILE_FAMILY)
+    plan = by["panel_max_plan_bytes"]
+    assert plan and all(r["on"]["plan_bytes"] == r["x"] for r in plan)
+    assert all(r["off"].get("plan_bytes", 0) < r["x"] for r in plan
+               if "off" in r)
+    assert by["panel_gather_gbps"][0]["bytes"] == 300 * 256 * 8
+    row, notes = fr.fit(recs)
+    assert row["panel_max_plan_bytes"] == fr.PLAN_CAP
+    assert len(fr.table(recs, row, {})) == len(recs) - 1
+
+
+def test_served_records_on_the_cpu(monkeypatch):
+    """The corpus's default serves beside the tile family and cuSPARSE
+    (two small dirs here), every one at the gate; not fitted."""
+    small = [x for x in fr.corpus(width=16)
+             if x[0] in ("small_210", "medium_2048")]
+    monkeypatch.setattr(fr, "corpus", lambda width=None: iter(small))
+    meas = fr.Measurer("cpu", lambda fn: fr.host_time_ms(fn, iters=2),
+                       graph=False, card="cpu")
+    recs = list(fr.served_records(meas, width=16))
+    assert [(r["operand"], r["b_dtype"]) for r in recs] == [
+        (n, d) for n, _, _ in small for d in fr.B_DTYPES]
+    for r in recs:
+        assert r["constant"] is None and r["served"]["gate"]
+        assert r["tile_family"]["route"] in TILE_FAMILY
+        assert r["tile_family"]["gate"] and r["cusparse"]["gate"]
+    assert fr.table(recs, {"densify_min_density": 0.1}, {}) == []
+
+
+def test_served_route_keeps_the_callees_counts():
+    """The recorder shares the callee's attributes: a kernel entry that
+    counts launches on itself counts through the recorder."""
+    from tpuspmm_torch.ops import xla
+
+    a = CSR.random(64, 64, 0.05, seed=1)
+    b = torch.zeros(64, 8)
+    xla.spmm_xla.probe = 0
+
+    def call():
+        xla.spmm_xla.probe += 1
+        return xla.spmm_xla(a, b)
+    try:
+        out, served = fr.served_route(call)
+        assert served == "xla" and xla.spmm_xla.probe == 1
+    finally:
+        del xla.spmm_xla.probe
+    assert out.shape == (64, 8)

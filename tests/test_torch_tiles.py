@@ -522,16 +522,17 @@ def test_card_residency_rules():
         csr_vmem.smem_optin("meta")
 
 
-# the dispatcher's route on every data/ dir at B width 256 (the card's
-# cost constants), at the default plan-bytes cap and with no panel or pair
-# plan admitted (the tile family or the gather path): what the first port
-# of the tile kernels routed, which the tile-owner routine must not move
+# the dispatcher's route on every data/ dir at B width 256 under the H100
+# row (kernels/dispatch.H100_FIT), at the row's plan-bytes cap and with no
+# panel or pair plan admitted (the tile family, or densify above the
+# row's floor): the tile-owner routine must not move them, and the row
+# moves them only with its records (tools/routing_h100.jsonl)
 ROUTES_ON_DATA = {
-    "large_15120": ("panel", "xla"), "large_20000": ("exact", "exact"),
-    "large_21074": ("panel", "xla"), "large_25605": ("panel", "cres"),
-    "medium_1484": ("exact", "exact"), "medium_2048": ("panel", "cres"),
+    "large_15120": ("panel", "cres"), "large_20000": ("exact", "exact"),
+    "large_21074": ("densify", "densify"), "large_25605": ("panel", "cres"),
+    "medium_1484": ("exact", "exact"), "medium_2048": ("densify", "densify"),
     "medium_2880": ("exact", "exact"), "medium_4000": ("panel", "cres"),
-    "medium_4096": ("panel", "xla"), "small_10x10": ("densify", "densify"),
+    "medium_4096": ("panel", "cres"), "small_10x10": ("densify", "densify"),
     "small_210": ("densify", "densify"),
     "small_32x32": ("densify", "densify"),
 }
@@ -541,14 +542,14 @@ ROUTES_ON_DATA = {
 def test_routes_on_data_dirs_are_pinned(name, monkeypatch):
     from tpuspmm_torch.data import data_dir
     from tpuspmm_torch.formats import convert
-    from tpuspmm_torch.kernels import dispatch, pair_spmm, panel_spmm
+    from tpuspmm_torch.kernels import dispatch
 
     a = convert.load_sparse(data_dir(name), "csr")
     b = torch.zeros(a.shape[1], 256)
     default, capped = ROUTES_ON_DATA[name]
     assert dispatch.route(a, b) == default
-    monkeypatch.setattr(panel_spmm, "PLAN_BYTES_CAP", 1)
-    monkeypatch.setattr(pair_spmm, "PLAN_BYTES_CAP", 1)
+    # the dispatcher reads its plan cap from the row, as JAX's does
+    monkeypatch.setitem(dispatch.H100_FIT, "panel_max_plan_bytes", 1)
     a = convert.load_sparse(data_dir(name), "csr")  # no cached geometry
     assert dispatch.route(a, b) == capped
 

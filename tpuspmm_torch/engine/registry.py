@@ -12,7 +12,7 @@ Admission keeps the JAX package's rules where they are about the plan or
 the operand (gather bytes, densify size, panel / pair plan bytes, the
 compensated path's cost).  The residency rules of the staged and
 C-resident variants are the card's (``kernels/csr_vmem.py``,
-``kernels/cres_spmm.py``): they admit more than the JAX package's v5e VMEM
+``kernels/cres_spmm.py``): they admit more than the JAX package's VMEM
 budget does, and the runner's records carry the rule.
 
 The BSR and ELL variants other than BSR's einsum and block stream run the

@@ -10,7 +10,7 @@
 - even, short rows (cv < 0.5, max ≤ 4·mean) → ELL gather;
 - else CSR gather.
 
-The one difference is the C-resident rule: the JAX package's reads v5e's
+The one difference is the C-resident rule: the JAX package's reads its
 8 MiB VMEM budget (``fits_vmem_out`` on the whole padded C), this one the
 card's (``cres_spmm.fits_card_out``: one owner's accumulator in a block's
 shared memory), which admits every output size.  Where the whole C misses

@@ -36,7 +36,7 @@ KiB at tile_m = 128, COLUMN_TILE = 64), not the whole C: every output size
 is admitted while that fits the
 card's opt-in shared memory per block.  The JAX package's ``fits_vmem_out``
 / ``fits_vmem_loop`` (C plus panels, or C plus the whole payload, within
-8 / 13 MiB of v5e VMEM) admit far fewer matrices; the engine's records
+8 / 13 MiB of the TPU's VMEM) admit far fewer matrices; the engine's records
 carry the card's rule.
 """
 

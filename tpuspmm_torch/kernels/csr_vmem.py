@@ -27,7 +27,8 @@ rows → slab_k = 768 (6 k tiles).  K ≤ 768 stages the whole B stripe (one
 slab); medium_2048 at its on-disk width slabs 3 ways, medium_4096 6 ways,
 large_25605 34 ways.  The rule admits every matrix whose accumulator leaves
 room for one tile_k stripe, which the JAX package's 8 MiB VMEM budget does
-not (its rule reads v5e constants): the engine's records carry the rule.
+not (its rule reads the TPU's constants): the engine's records carry the
+rule.
 A CPU tensor reads the H100's figure, so the CPU tests plan what the card
 runs.
 """

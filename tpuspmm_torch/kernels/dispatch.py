@@ -13,7 +13,8 @@ order:
 3. density ≥ densify_min_density with dense A ≤ densify_max_bytes →
    densify once and serve one f32 matmul (``ops/xla.py``);
 4. the panel (K1) and pair (K2) geometries are resolved with this
-   device's cost constants, and the lower modelled serve time serves, at
+   device's cost constants, within its panel_max_plan_bytes, and the
+   lower modelled serve time serves, at
    the "highest" tier whatever ``config.precision_mode`` says (as the JAX
    package does: the 2-term tier is verified-only);
 5. with ≥ tile_min_nnz_per_chunk nonzeros per tile-plan chunk, the tile
@@ -29,50 +30,63 @@ from __future__ import annotations
 
 import torch
 
-from tpuspmm_torch.engine.report import HBM_GBPS, hbm_gbps
+from tpuspmm_torch.engine.report import hbm_gbps
 from tpuspmm_torch.kernels.common import round_up
 
-# Routing and cost constants.
-# - densify_max_bytes, densify_min_density and tile_min_nnz_per_chunk are
-#   the JAX package's routing rule (its v5e row), not fitted on this card.
+# The H100 row: every key of the JAX package's per-chip row
+# (``tpuspmm/kernels/dispatch.py::_CHIP_THRESHOLDS``), each one measured
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi).
+# - densify_min_density, densify_max_bytes, tile_min_nnz_per_chunk,
+#   panel_max_plan_bytes and panel_gather_gbps: tools/fit_routing.py from
+#   tools/routing_h100.jsonl (244 records), serve times through
+#   tpuspmm_torch.spmm on both sides of each constant (CUDA events,
+#   median of 20 serves, plan prebuilt), measured under this row:
+#   - densify_min_density: least regret over 116 records (uniform 2048²
+#     and 4096² at 0.0005-0.2, w256 / w1024; the pruned 4096² weights;
+#     the corpus; f32 and bf16 B), the measured density of
+#     uniform_4096_d0.001 (geometric-mean regret 1.135);
+#   - densify_max_bytes: densify is least regret on dense A of 64 and
+#     256 MiB and not at 1 GiB;
+#   - tile_min_nnz_per_chunk: least regret over 72 records, the tile
+#     family against the gather path: the fewest nonzeros per chunk
+#     measured (uniform_16384_r4); the tile family won every record;
+#   - panel_max_plan_bytes: the largest panel plan measured serving
+#     faster than the route the cap below it gives (8192² at 0.016 and,
+#     with bf16 B, 0.2);
+#   - panel_gather_gbps: the un-permute's row gather, 20000 × 256 f32,
+#     bytes read and written over its median time.
 # - panel_step_us (per panel or pair chunk), panel_strip_us (per strip)
-#   and panel_hbm_gbps (the plan stream's effective rate) are fitted on an
-#   NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi) by
-#   tools/fit_panel_model.py from tools/ablate_panel_h100.jsonl: 55
-#   gate-passing panel "highest" records of 5 matrices at B width 256,
-#   device time (the launch replayed in a CUDA graph), residual RMS
-#   0.0885 ms on 0.107-0.624 ms launches.  The residual is large because
-#   the strip kernel's time follows its (64-row group, k-tile) entries
-#   and B traffic, which the model does not count (PERF.md).  So the
-#   fitted panel_hbm_gbps is a cost term (JAX's name), not the card's
-#   memory rate: a roofline reads engine/report.hbm_gbps instead.
-# - panel_gather_gbps, the un-permute's rate: the fit sets its term to
-#   zero (not identifiable from those records), so it keeps the card's
-#   data-sheet bandwidth.
-# The fit was taken on the SXM part; other H100s get the same fitted
-# terms and their own data-sheet bandwidth.  The "cpu" row is the H100
-# SXM's, so the CPU tests pick the route the card picks.
-_ROUTING = {"densify_max_bytes": 128 * 1024 * 1024,
-            "densify_min_density": 0.004,
-            "tile_min_nnz_per_chunk": 40.0}
-H100_FIT = {"panel_step_us": 0.022, "panel_strip_us": 0.01041,
-            "panel_hbm_gbps": 221.4}
-
-
-def _row(gbps: float) -> dict:
-    return dict(_ROUTING, **H100_FIT, panel_gather_gbps=gbps)
+#   and panel_hbm_gbps (the plan stream's effective rate): tools/
+#   fit_panel_model.py from tools/ablate_panel_h100.jsonl, 55 gate-passing
+#   panel "highest" records of 5 matrices at B width 256, device time
+#   (the launch replayed in a CUDA graph), residual RMS 0.0885 ms on
+#   0.107-0.624 ms launches.  The residual is large because the strip
+#   kernel's time follows its (64-row group, k-tile) entries and B
+#   traffic, which the model does not count (PERF.md).  So the fitted
+#   panel_hbm_gbps is a cost term (JAX's name), not the card's memory
+#   rate: a roofline reads engine/report.hbm_gbps instead.
+# The row was measured on the SXM part; other H100s read it too.  The
+# "cpu" row is the same row, so the CPU tests pick the route the card
+# picks.
+H100_FIT = {"densify_max_bytes": 268435456,
+            "densify_min_density": 0.0009999275207519531,
+            "tile_min_nnz_per_chunk": 4.069547938400397,
+            "panel_max_plan_bytes": 268435456,
+            "panel_step_us": 0.022, "panel_strip_us": 0.01041,
+            "panel_hbm_gbps": 221.4,
+            "panel_gather_gbps": 1238.5}
 
 
 def thresholds(device="cpu") -> dict:
-    """Routing and cost constants for ``device``: the "cpu" row for a CPU
-    device, the "h100" row (bandwidth by the card's name) for a CUDA
-    device.  An unknown card raises."""
+    """Routing and cost constants for ``device``: the H100 row, for a CPU
+    device and for a CUDA device whose card is on record
+    (``engine/report.HBM_GBPS``).  Another card raises."""
     device = torch.device(device)
-    if device.type == "cpu":
-        return _row(HBM_GBPS["NVIDIA H100 80GB HBM3"])
-    if device.type != "cuda":
+    if device.type == "cuda":
+        hbm_gbps(torch.cuda.get_device_name(device))  # an unknown card raises
+    elif device.type != "cpu":
         raise ValueError(f"no cost constants for device {device}")
-    return _row(hbm_gbps(torch.cuda.get_device_name(device)))
+    return dict(H100_FIT)
 
 
 def route(a, b: torch.Tensor, config=None) -> str:
@@ -107,7 +121,7 @@ def _resolve(a, b: torch.Tensor, config=None):
         return "densify", None
 
     n_pad = round_up(int(b.shape[1]), 128)
-    cap = panel_spmm.PLAN_BYTES_CAP
+    cap = th["panel_max_plan_bytes"]
     geom = panel_spmm.resolve_panel_geometry(
         a, n_pad, panel_strips=config.panel_strips, plan_bytes_cap=cap,
         device=b.device, b_dtype=b.dtype)
