@@ -81,24 +81,21 @@ Prints one JSON object per phase:
    (16-byte cp.async, and plain loads for rows not 16-byte aligned) must
    be among those held, for f32 and bf16 B;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
-   runs: large_25605 w256 in f32 and bf16 with the default config, and
-   again with the panel strip count pinned (``Config(panel_strips=16)``),
-   one record in bench.py's shape each; then the corpus dirs large_15120,
-   large_21074, medium_2048 and medium_4096, each served by the route
-   ``dispatch.route`` names (panel, pair or densify under the routing
-   row), checked at the gate and timed beside cuSPARSE on the same
-   operand.
-   The counts are read as this path's launches.  Then the BSR serving
+   runs: large_25605 w256 in f32 and bf16, one record in bench.py's shape;
+   then the corpus dirs large_15120, large_21074, medium_2048 and
+   medium_4096, each served by the route the priced dispatcher names
+   (``dispatch.route``, which must be SERVED_ROUTES', the list the CPU
+   tests pin: the headline's bf16 serve reaches the panel kernel and
+   medium_2048's the pair kernel), checked at the gate and timed beside
+   cuSPARSE on the same operand, with every admitted route's modelled µs.
+   The counts are read as this path's launches (panel, pair and
+   C-resident must have run).  Then the BSR serving
    path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
    in f32 and bf16, each served by K6 and by no other kernel, at the gate;
    the 4 x 4 weight at 10% block density (packing refused, as in the
    JAX package) served by the route ``dispatch.route`` names under the
    routing row, launching that route's kernel alone (none for densify),
-   at the gate.  Under the cost
-   constants fitted on the H100 (``kernels/dispatch.py``) the default
-   config never prices pair below panel, so the pair kernel is served
-   on PAIR_SERVED (large_15120) with the panel strip count pinned
-   (``Config(panel_strips=16)``), which prices panel above pair.  After
+   at the gate.  After
    the window, one ``model_fit`` record per dir the default config
    serves by panel or pair (of the headline, the four corpus dirs and
    medium_4000, at their widths): the panel and pair geometries the
@@ -137,9 +134,10 @@ Prints one JSON object per phase:
    bit), and a second tune on a fresh container measures nothing and
    returns the same ranking; one record per operand with the ranking, the
    winner, and the tuned serve's time beside the default serve's and
-   cuSPARSE's; the tuned serve on medium_4096 must be at least 4x faster
-   than the default.  After every tune, the panel and pair entries of
-   every ranking carry their geometry and the resolvers return it for
+   cuSPARSE's; the default serve on medium_4096 must be the tile family
+   (priced) and within 2x of the tuned serve.  After every tune, the
+   panel and pair entries of every ranking carry their geometry and the
+   resolvers return it for
    that operand's B dtype on a fresh container of the same matrix (from
    the disk cache).  The counts are read as the tuned window's launches.
    Then ``python -m tpuspmm_torch.bench`` in a process of its own with
@@ -215,16 +213,17 @@ Prints one JSON object per phase:
    rank in a process of its own) at the gate.  The tile, staged,
    C-resident, panel and stream kernels must have launched in the window
    (the ranks' launches come back in their records);
-10d. the routing row (``kernels/dispatch.H100_FIT``, fitted by
-   ``tools/fit_routing.py``): on ROUTING_OPERANDS (the 4 x 4 and
-   128 x 128 pruned weights at 90% as CSR w512, f32 and bf16 B; the
-   uniform 2048 x 2048 at densities 0.016 and 0.1, w1024; large_21074
-   w512) the route ``tpuspmm_torch.spmm`` serves must be the one
-   ``dispatch.route`` names and pass the gate; its time, and both sides
-   of the constant that decides the operand (densify_min_density; for
-   large_21074 tile_min_nnz_per_chunk, panel and densify refused), each
-   served, gated and timed, with which side the row takes and the ratio
-   of the two times (reported, not required);
+10d. the priced dispatcher (``kernels/dispatch.route_costs``, the
+   serve-time model of the H100 row, fitted by ``tools/fit_routing.py``):
+   on ROUTING_OPERANDS (the 4 x 4 and 128 x 128 pruned weights at 90% as
+   CSR w512, f32 and bf16 B; the uniform 2048 x 2048 at densities 0.016
+   and 0.1, w1024; large_21074 w512; medium_4096 w4096 and large_15120
+   w12600 at their on-disk B) the route ``tpuspmm_torch.spmm`` serves
+   must be the one ``dispatch.route`` names, the least modelled time,
+   and pass the gate; its serve and device times, and every admitted
+   route's modelled µs beside its measured ``ms`` and ``device_ms`` (each
+   pinned by the row, served and gated), JAX's order's route and the
+   chosen route's regret (reported, not required);
 11. the kernels line (all seven kernels and the stream kernel, with the
    least time the card could take for the work, ``bound_ms``, the library
    call's time, the tuned window's launches, ``tuned_launches``, the
@@ -264,9 +263,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = "large_25605"
 WIDTH = 256
 MAIN_CORPUS = ("large_15120", "large_21074", "medium_2048", "medium_4096")
-# the serving dir a pinned P (Config(panel_strips=16)) sends to pair
-# (at its on-disk width, 12600; medium_2048 densifies under the routing row)
-PAIR_SERVED = "large_15120"
+# the routes the priced dispatcher serves the headline (w256) and
+# MAIN_CORPUS (on-disk B, large_21074 w256) by, (dir, B dtype): the list
+# tests/test_torch_route_model.py pins on the CPU.  The headline's bf16
+# serve reaches K1 and medium_2048's K2
+SERVED_ROUTES = {(HEADLINE, "f32"): "cres", (HEADLINE, "bf16"): "panel",
+                 ("large_15120", "f32"): "cres",
+                 ("large_21074", "f32"): "cres",
+                 ("medium_2048", "f32"): "pair",
+                 ("medium_4096", "f32"): "cres"}
 # the dir outside MAIN_CORPUS whose default serve is panel / pair: its
 # model_fit record (its values are extreme, so it is not held to the gate)
 FIT_EXTRA = "medium_4000"
@@ -333,16 +338,17 @@ ENGINE_RUNS = (
 )
 # phase 7: dirs whose serve is held to the route dispatch.route names
 ROUTE_DIRS = ("small_32x32", "medium_1484")
-# phase 10d: (operand, B dtypes, the routing constant whose two sides are
-# timed); the pruned weights as CSR at PRUNED_WIDTH, the uniform 2048²
-# (values U(-1, 1)) at w1024, large_21074 at PRUNED_WIDTH
-ROUTING_OPERANDS = (("pruned_4x4_s0.9", ("f32", "bf16"),
-                     "densify_min_density"),
-                    ("pruned_128x128_s0.9", ("f32", "bf16"),
-                     "densify_min_density"),
-                    ("uniform_2048_d0.016", ("f32",), "densify_min_density"),
-                    ("uniform_2048_d0.1", ("f32",), "densify_min_density"),
-                    ("large_21074", ("f32",), "tile_min_nnz_per_chunk"))
+# phase 10d: (operand, B dtypes, B width; None: on-disk) served by the
+# priced dispatcher beside every admitted route: the pruned weights as
+# CSR, the uniform 2048² (values U(-1, 1)), large_21074, and the wide-B
+# dirs where JAX's order serves the strip routine
+ROUTING_OPERANDS = (("pruned_4x4_s0.9", ("f32", "bf16"), PRUNED_WIDTH),
+                    ("pruned_128x128_s0.9", ("f32", "bf16"), PRUNED_WIDTH),
+                    ("uniform_2048_d0.016", ("f32",), 1024),
+                    ("uniform_2048_d0.1", ("f32",), 1024),
+                    ("large_21074", ("f32",), PRUNED_WIDTH),
+                    ("medium_4096", ("f32",), None),
+                    ("large_15120", ("f32",), None))
 # the sweeps phase: the corpus dirs it sweeps at their on-disk B
 # (large_25605 synthesises 512 columns; the whole corpus runs as its own
 # call, README), the sparsity sweep's size (the reference's) and densities
@@ -449,32 +455,6 @@ def ptxas_report(log: str) -> list:
         out.append({"kernel": name, "registers": int(regs.group(1)),
                     "spill_store_bytes": int(spill.group(1)) if spill
                     else None})
-    return out
-
-
-def strip_work(plan, group_rows: int, n: int) -> dict:
-    """What one launch of the strip kernel moves and computes: its (group,
-    k-tile) entries at ``group_rows`` output rows, the B bytes they load
-    from L2 (one tk x n tile each, f32 and bf16 B), and the tensor-core
-    products it runs (each m16 row tile of an entry with a strip present,
-    16 x tk x n, times the passes of the precision ladder: 1 for bf16 x
-    bf16, 3 with one f32 operand, 6 with two), against the bf16 rate."""
-    G = group_rows // plan.tm
-    group_ptr, _, group_slot = plan.group_index(G)
-    rows = np.repeat(group_slot >= 0, plan.tm, axis=1)
-    m16 = int(rows.reshape(-1, group_rows // 16, 16).any(-1).sum())
-    pairs = int(group_ptr[-1])
-    plan_bf16 = plan.a_dense.dtype == np.uint16
-    out = {"group_rows": group_rows, "group_pairs": pairs,
-           "groups": len(group_ptr) - 1, "m16_tiles": m16}
-    for tag, size, b_bf16 in (("f32", 4, False), ("bf16", 2, True)):
-        passes = 1 if plan_bf16 and b_bf16 else 3 if plan_bf16 or b_bf16 \
-            else 6
-        flop = 2.0 * m16 * 16 * plan.tk * n * passes
-        sfx = "" if tag == "f32" else "_bf16"
-        out[f"b_mb_per_call{sfx}"] = pairs * plan.tk * n * size / 1e6
-        out[f"tc_gflop{sfx}"] = flop / 1e9
-        out[f"tc_floor_ms{sfx}"] = flop / BF16_PEAK_FLOPS * 1e3
     return out
 
 
@@ -954,44 +934,48 @@ def tools_phase(gpu: str, card: str) -> dict:
 
 
 def routing_row_phase(gpu: str, card: str) -> None:
-    """Phase 10d: the dispatcher's routing row on ROUTING_OPERANDS.  Each
-    is served by ``tpuspmm_torch.spmm`` under the row: the route it took
-    must be the one ``dispatch.route`` names and must pass the gate
-    against an f64 product.  Then both sides of the constant that decides
-    it (``tools/fit_routing.py``'s records: the route with the constant
-    moved below the operand and past it), each served, gated and timed;
-    the record says which side the row takes and how the two times
-    compare, and asserts nothing about which is faster."""
+    """Phase 10d: the priced dispatcher on ROUTING_OPERANDS.  Each is
+    served by ``tpuspmm_torch.spmm`` under the row: the route it took
+    must be the one ``dispatch.route`` names, the least of
+    ``dispatch.route_costs`` (the serve-time model, µs), and must pass the
+    gate against an f64 product; its serve time (``ms``, CUDA events) and
+    device time (``device_ms``, graph replay).  Then every admitted route
+    (``tools/fit_routing.py``'s routes record: each pinned by the row,
+    served, gated and timed) beside its modelled µs, the route JAX's
+    fixed order takes, and the chosen route's regret (its time over the
+    fastest route's): reported, not required."""
     import tpuspmm_torch
     from tpuspmm_torch.data import data_dir
     from tpuspmm_torch.formats import convert
     from tpuspmm_torch.kernels import dispatch
     from tpuspmm_torch.tools import fit_routing as fr
     from tpuspmm_torch.utils.compare import allclose
-    from tpuspmm_torch.utils.timing import cuda_time_ms
+    from tpuspmm_torch.utils.timing import cuda_time_ms, graph_time_ms
 
     t_phase = time.perf_counter()
     power = card.split(",")[-1].strip()
     meas = fr.Measurer("cuda", lambda fn: cuda_time_ms(fn, warmup=3,
                                                        iters=fr.SERVES),
                        graph=True, card=card)
-    row = dispatch.thresholds("cuda")
-    for name, dtypes, constant in ROUTING_OPERANDS:
+    for name, dtypes, width in ROUTING_OPERANDS:
         if name.startswith("pruned_"):
             block, s = name[len("pruned_"):].split("_s")
             a = fr.pruned(int(block.split("x")[0]), float(s))
-            b_np = fr.b_pruned(a.shape[1], PRUNED_WIDTH)
+            b_np = fr.b_pruned(a.shape[1], width)
         elif name.startswith("uniform_"):
             n, d = name[len("uniform_"):].split("_d")
             a = fr.uniform(int(n), float(d))
-            b_np = fr.b_uniform(int(n), 1024)
+            b_np = fr.b_uniform(int(n), width)
         else:
             a = convert.load_sparse(data_dir(name), "csr")
             b_np = np.asarray(convert.load_dense(
-                data_dir(name), width=PRUNED_WIDTH).data, np.float32)
+                data_dir(name), width=width).data, np.float32)
         for dtype in dtypes:
             b = torch.from_numpy(b_np).cuda().to(fr.B_DTYPES[dtype])
+            costs = dispatch.route_costs(a, b)
             route = dispatch.route(a, b)
+            check(route == dispatch.cheapest(costs),
+                  f"{name} {dtype}: {route} is the least modelled time")
             out, served = fr.served_route(lambda: tpuspmm_torch.spmm(a, b))
             gate = allclose(out, fr.reference(a, b))
             check(served == route, f"{name} {dtype}: spmm served {served}, "
@@ -999,18 +983,18 @@ def routing_row_phase(gpu: str, card: str) -> None:
             check(gate, f"{name} {dtype}: served {route} at the gate")
             del out
             ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b))
-            rec, = fr.both_sides(meas, constant, name, a, b_np, (dtype,))
-            side = ("on" if fr.admits(constant, rec["x"], row[constant])
-                    else "off")
-            other = {"on": "off", "off": "on"}[side]
-            fields = {"same_route": rec["same_route"]} \
-                if "same_route" in rec else {
-                    "row_side": rec[side], "other_side": rec[other],
-                    "row_over_other_ms": rec[side]["ms"] / rec[other]["ms"]}
+            dev_ms = graph_time_ms(lambda: tpuspmm_torch.spmm(a, b))
+            rec = fr.routes_record(meas, "phase", name, a, b_np, dtype,
+                                   rounds=1)
+            routes = {kind: {"modelled_us": costs.get(kind), "ms": x["ms"],
+                             "device_ms": x["device_ms"], "gate": x["gate"]}
+                      for kind, x in rec["routes"].items()}
             emit("routing_row", operand=name, b_dtype=dtype,
-                 width=int(b.shape[1]), served=route, ms=ms, gate=gate,
-                 constant=constant, row_value=row[constant], x=rec["x"],
-                 **fields, gpu=gpu, power_limit=power)
+                 width=int(b.shape[1]), served=route, ms=ms,
+                 device_ms=dev_ms, gate=gate, routes=routes,
+                 jax_order=fr.jax_route(rec),
+                 regret=fr.route_regret(rec, route),
+                 gpu=gpu, power_limit=power)
             del b
         del a
         torch.cuda.empty_cache()
@@ -1288,7 +1272,8 @@ def main() -> int:
                          "control": control})
             del r, r2
     for name, plan in plans.items():
-        stats[name]["work"] = strip_work(plan, strip_cuda.GROUP_ROWS, WIDTH)
+        # the reckoning the dispatcher prices the strip routine by
+        stats[name]["work"] = panel_spmm.plan_strip_work(plan, WIDTH)
         emit("strip_work", kernel=name, testcase=HEADLINE,
              **stats[name]["work"])
 
@@ -1704,21 +1689,34 @@ def main() -> int:
     emit("bsr_kernel_launches", bsr_stream=bsr_window)
 
     # ---- 5. serving path: tpuspmm_torch.spmm only -----------------------
-    for fn, _ in entries.values():
+    serving = {"panel": panel_spmm.spmm_panel, "pair": pair_spmm.spmm_pair,
+               **{n: tile_entries[n][0] for n in ("tile", "staged", "cres")}}
+    for fn in serving.values():
         fn.launches = 0
 
     def served_by(call):
-        before = {n: fn.launches for n, (fn, _) in entries.items()}
+        before = {n: fn.launches for n, fn in serving.items()}
         out = call()
         torch.cuda.synchronize()
-        ran = [n for n, (fn, _) in entries.items()
-               if fn.launches > before[n]]
+        ran = [n for n, fn in serving.items() if fn.launches > before[n]]
         check(len(ran) == 1, f"one kernel served the call (got {ran})")
         return out, ran[0]
 
     def modelled_kernel(a, n_pad, config) -> str:
         geom, pgeom = resolved(a, n_pad, config.panel_strips)
         return "pair" if pgeom.cost_us < geom.cost_us else "panel"
+
+    def served_plan(ca, b):
+        """The served kernel's plain ms on the plan the dispatcher serves
+        from, and that plan's geometry."""
+        kernel, plan = dispatch._resolve(ca, b)
+        if kernel in entries:
+            return (cuda_time_ms(lambda: entries[kernel][1](plan, b)),
+                    geometry(plan))
+        plain = tile_entries[kernel][2]
+        return (cuda_time_ms(lambda: plain(plan, b, Config().precision_mode)),
+                {"tile_m": plan.tile_m, "tile_k": plan.tile_k,
+                 "chunks": plan.num_chunks})
 
     vendor_out = vendor.spmm_vendor(a, b32)
     check(allclose(vendor_out, refs[torch.float32]), "vendor gate")
@@ -1730,48 +1728,45 @@ def main() -> int:
     # the least bytes over the card's data-sheet rate (not the cost model's
     # fitted plan-stream rate, which is no bandwidth of the card)
     sol_s = report.spmm_min_bytes(a.nnz, m, k, WIDTH) / hbm
-    for config in (Config(), Config(panel_strips=16)):
-        out32, kernel = served_by(lambda: tpuspmm_torch.spmm(a, b32,
-                                                             config=config))
-        check(kernel == modelled_kernel(a, WIDTH, config),
-              f"dispatch served the lower modelled time ({kernel})")
-        correct = allclose(out32, refs[torch.float32])
-        check(correct, f"main path f32 gate vs f64 oracle ({kernel})")
-        out16, kernel16 = served_by(lambda: tpuspmm_torch.spmm(
-            a, b16, config=config))
-        bf16_correct = allclose(out16, refs[torch.bfloat16])
-        check(bf16_correct, f"main path bf16 gate vs f64 oracle ({kernel})")
-        check(kernel16 == kernel, "same kernel for f32 and bf16 B")
-        kernel_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b32,
-                                                            config=config))
-        bf16_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b16,
-                                                          config=config))
-        geom, pgeom = resolved(a, WIDTH, config.panel_strips)
-        plan = plan_of(a, kernel, geom if kernel == "panel" else pgeom, WIDTH)
-        plain_fn = entries[kernel][1]
-        plain_ms = cuda_time_ms(lambda: plain_fn(plan, b32))
-        emit("main_path", **{
-            "metric": f"csr_spmm_gflops_{HEADLINE}_w{WIDTH}",
-            "config": {"panel_strips": config.panel_strips},
-            "kernel": kernel,
-            "panel_cost_us": geom.cost_us, "pair_cost_us": pgeom.cost_us,
-            "value": flops / (kernel_ms * 1e-3) / 1e9,
-            "unit": "GFLOP/s",
-            "vs_baseline": vendor_ms / kernel_ms,
-            "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "vendor_ms": vendor_ms,
-            "nnz_per_s": a.nnz / (kernel_ms * 1e-3),
-            "hbm_roofline_frac": sol_s / (kernel_ms * 1e-3),
-            "correct": correct,
-            "bf16_serving_ms": bf16_ms,
-            "bf16_serving_correct": bf16_correct,
-            "geometry": geometry(plan),
-            "gpu": gpu,
-            "power_limit": card.split(",")[-1].strip(),
-            "bCols": WIDTH, "bDtype": "f32", "bSource": dense.b_source,
-        })
-        del out32, out16
+    # the headline through the priced dispatcher: each B dtype by the
+    # route the model prices cheapest (SERVED_ROUTES)
+    out32, kernel = served_by(lambda: tpuspmm_torch.spmm(a, b32))
+    out16, kernel16 = served_by(lambda: tpuspmm_torch.spmm(a, b16))
+    for kname, tb, want in ((kernel, b32, "f32"), (kernel16, b16, "bf16")):
+        check(kname == dispatch.route(a, tb)
+              == SERVED_ROUTES[HEADLINE, want],
+              f"main path {want}: served {kname}, dispatch.route "
+              f"{dispatch.route(a, tb)}, expected "
+              f"{SERVED_ROUTES[HEADLINE, want]}")
+    correct = allclose(out32, refs[torch.float32])
+    check(correct, f"main path f32 gate vs f64 oracle ({kernel})")
+    bf16_correct = allclose(out16, refs[torch.bfloat16])
+    check(bf16_correct, f"main path bf16 gate vs f64 oracle ({kernel16})")
+    kernel_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b32))
+    bf16_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b16))
+    plain_ms, geom32 = served_plan(a, b32)
+    emit("main_path", **{
+        "metric": f"csr_spmm_gflops_{HEADLINE}_w{WIDTH}",
+        "kernel": kernel, "bf16_kernel": kernel16,
+        "route_costs_us": dispatch.route_costs(a, b32),
+        "bf16_route_costs_us": dispatch.route_costs(a, b16),
+        "value": flops / (kernel_ms * 1e-3) / 1e9,
+        "unit": "GFLOP/s",
+        "vs_baseline": vendor_ms / kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "vendor_ms": vendor_ms,
+        "nnz_per_s": a.nnz / (kernel_ms * 1e-3),
+        "hbm_roofline_frac": sol_s / (kernel_ms * 1e-3),
+        "correct": correct,
+        "bf16_serving_ms": bf16_ms,
+        "bf16_serving_correct": bf16_correct,
+        "geometry": geom32,
+        "gpu": gpu,
+        "power_limit": card.split(",")[-1].strip(),
+        "bCols": WIDTH, "bDtype": "f32", "bSource": dense.b_source,
+    })
+    del out32, out16
 
     corpus = {}
     for name in MAIN_CORPUS:
@@ -1781,12 +1776,12 @@ def main() -> int:
               f"{name} is not served by the compensated path")
         b = torch.from_numpy(cdense.data).to(dev)
         ref = oracle.spmm_scipy_oracle(ca, cdense.data)
-        # the route the routing row gives (panel, pair or densify here)
-        out, served = fit_routing.served_route(
-            lambda: tpuspmm_torch.spmm(ca, b))
-        check(served == dispatch.route(ca, b),
+        # the route the priced dispatcher gives, as the CPU tests pin it
+        out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b))
+        check(served == dispatch.route(ca, b) == SERVED_ROUTES[name, "f32"],
               f"{name} served {served}, dispatch.route names "
-              f"{dispatch.route(ca, b)}")
+              f"{dispatch.route(ca, b)}, expected "
+              f"{SERVED_ROUTES[name, 'f32']}")
         check(allclose(out, ref), f"{name} dispatch gate")
         ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b))
         # the library call on the same operand, timed here only
@@ -1796,32 +1791,18 @@ def main() -> int:
             kernel_name=served, correct=True, kernel_ms=ms, n=b.shape[1],
             device=gpu, extra={"bSource": cdense.b_source,
                                "cusparse_ms": lib_ms,
-                               "vs_cusparse": lib_ms / ms}))
+                               "vs_cusparse": lib_ms / ms,
+                               "route_costs_us": dispatch.route_costs(ca,
+                                                                      b)}))
         corpus[name] = (ca, b, ref)
         del out
 
-    # the pair kernel on the serving path: under the fitted constants the
-    # default config never prices pair below panel; a pinned P on
-    # PAIR_SERVED prices panel above pair's search
-    ca, b, ref = corpus[PAIR_SERVED]
-    pinned = Config(panel_strips=16)
-    out, served = served_by(lambda: tpuspmm_torch.spmm(ca, b, config=pinned))
-    check(served == "pair" == modelled_kernel(ca, b.shape[1], pinned),
-          f"{PAIR_SERVED} with P pinned to 16 served pair ({served})")
-    check(allclose(out, ref), f"{PAIR_SERVED} pinned-P gate")
-    emit("corpus", config={"panel_strips": 16}, **report.make_record(
-        testcase=PAIR_SERVED, sparsity=ca.sparsity, fmt="csr",
-        kernel_type=0, kernel_name=served, correct=True,
-        kernel_ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b,
-                                                          config=pinned)),
-        n=b.shape[1], device=gpu))
-    del out
-
-    launches = {n: fn.launches for n, (fn, _) in entries.items()}
+    launches = {n: fn.launches for n, fn in serving.items()}
     emit("serving_path_launches", **launches,
          note="tpuspmm_torch.spmm calls only (serves, timing loops)")
-    for name, count in launches.items():
-        check(count > 0, f"{name} kernel launched on the serving path")
+    for name in ("panel", "pair", "cres"):
+        check(launches[name] > 0, f"{name} kernel launched on the serving "
+                                  "path")
 
     # the fitted model's prices beside the device times they stand for, on
     # every dir the default config serves by panel or pair at its width,
@@ -2109,10 +2090,16 @@ def main() -> int:
                   f"{label}: {r.variant_name}'s pinned geometry {r.geom} "
                   f"comes back from disk on a fresh container ({got})")
         del fresh
+    # the default serve is priced: on medium_4096 w4096 it is the tile
+    # family, which the tuner ranked first before the strip routine
+    # (1.75 ms in JAX's order); host work spreads such serves, so the
+    # check allows 2x
     tuned_serve, default_ms = tuned_ms["medium_4096 w4096"]
-    check(default_ms >= 4 * tuned_serve,
-          f"medium_4096 w4096: the tuned serve ({tuned_serve} ms) is at "
-          f"least 4x faster than the default serve ({default_ms} ms)")
+    check(defaults["medium_4096 w4096"][0] in dispatch.TILE_FAMILY
+          and default_ms <= 2 * tuned_serve,
+          f"medium_4096 w4096: the default serve "
+          f"({defaults['medium_4096 w4096'][0]}, {default_ms} ms) is the "
+          f"tile family within 2x of the tuned serve ({tuned_serve} ms)")
     tuned_window = {n: c.launches for n, c in all_counters.items()}
     emit("tuned_launches", **tuned_window,
          note="autotune.tune and spmm(method='tuned') on the four operands")
@@ -2361,7 +2348,7 @@ def main() -> int:
     stream_rate = st["bytes"] / (st["ms"] * 1e-3)  # bytes/s, this run
     lines = []
     for name, (entry, source, replaces) in kernels.items():
-        if name in launches:  # K1, K2: the CSR serving path
+        if launches.get(name):  # K1, K2, K5a: the CSR serving path
             count, window = launches[name], "serving (tpuspmm_torch.spmm)"
         elif name == "cres_kloop":
             count, window = tile_window[name], "tile_kernels_vs_plain"
@@ -2379,7 +2366,7 @@ def main() -> int:
             line["entry_launches"] = tools_launches["entry_panel"]
             line["entry"] = {k: tools["entry"][k] for k in (
                 "ms", "device_ms", "plain_ms", "max_abs_err", "bound_ms")}
-        if name in launches:
+        if name in entries:
             line.update({
                 "max_abs_err": stats[name]["max_abs_err"],
                 "max_abs_err_split2": stats[name].get("max_abs_err_split2"),

@@ -97,21 +97,22 @@ def test_dispatch_serves_the_cheaper_model():
 
 
 # the default route at B width 256 on every data/ dir under the fitted
-# H100 row (its un-permute rate prices the row orders), with the panel
-# geometry the model picks (P, tm, tk, row
-# order) and pair's (CH, row order): pair never prices below panel at the
-# default config, since pair's candidates (tm 8, tk 128) are a subset of
-# panel's and pair at CH = c prices as panel at P = c
+# H100 row (the serve-time model prices the admitted routes), with the
+# panel geometry the geometry model picks (P, tm, tk, row order; its
+# un-permute rate prices the row orders) and pair's (CH, row order): pair's
+# geometry never prices below panel's at the default config, since pair's
+# candidates (tm 8, tk 128) are a subset of panel's and pair at CH = c
+# prices as panel at P = c
 FITTED_ROUTES = {
-    "large_15120": ("panel", (8, 16, 128, "natural"), (8, "natural")),
+    "large_15120": ("cres", (8, 16, 128, "natural"), (8, "natural")),
     "large_20000": ("exact", (8, 16, 128, "signature"), (16, "signature")),
-    "large_21074": ("densify", (8, 16, 512, "natural"), (32, "natural")),
-    "large_25605": ("panel", (8, 16, 128, "natural"), (8, "natural")),
+    "large_21074": ("cres", (8, 16, 512, "natural"), (32, "natural")),
+    "large_25605": ("cres", (8, 16, 128, "natural"), (8, "natural")),
     "medium_1484": ("exact", (8, 16, 128, "natural"), (16, "natural")),
     "medium_2048": ("densify", (8, 16, 128, "natural"), (8, "natural")),
     "medium_2880": ("exact", (8, 8, 128, "signature"), (16, "signature")),
     "medium_4000": ("panel", (8, 16, 128, "natural"), (16, "natural")),
-    "medium_4096": ("panel", (16, 8, 512, "signature"), (32, "signature")),
+    "medium_4096": ("cres", (16, 8, 512, "signature"), (32, "signature")),
     "small_10x10": ("densify", (8, 8, 128, "natural"), (8, "natural")),
     "small_210": ("densify", (8, 16, 256, "natural"), (16, "natural")),
     "small_32x32": ("densify", (8, 8, 128, "natural"), (8, "natural")),
@@ -133,10 +134,21 @@ def test_fitted_routes_on_data_dirs(name):
     assert geom.cost_us <= pgeom.cost_us
 
 
+def jax_order_row(monkeypatch):
+    """The port's row without its serve-time model: the dispatcher routes
+    in JAX's fixed order, panel or pair by the geometry model."""
+    for terms in dispatch.SERVE_TERMS.values():
+        for key in terms:
+            monkeypatch.delitem(dispatch.H100_FIT, key)
+
+
 def test_pinned_panel_strips_route_to_pair(monkeypatch):
     """A pinned P prices the panel plan above pair's searched one on
     large_15120 (the panel search keeps tm 8, tk 128 at P = 16, where pair
-    takes CH = 8): the dispatcher serves the pair kernel, and only it."""
+    takes CH = 8): in JAX's order (the row without its serve-time model,
+    which prices the tile family below both here) the dispatcher serves
+    the pair kernel, and only it."""
+    jax_order_row(monkeypatch)
     a = convert.load_sparse(data_dir("large_15120"), "csr")
     b = torch.from_numpy(np.random.default_rng(8).uniform(
         -1, 1, (a.shape[1], 128)).astype(np.float32))
@@ -269,11 +281,13 @@ def test_densify_is_full_f32_and_cached():
     assert np.abs(got.numpy() - f64).max() <= 1e-5 * np.abs(f64).max()
 
 
-def test_split2_config_serves_panel_pair_at_highest():
+def test_split2_config_serves_panel_pair_at_highest(monkeypatch):
     """Config(precision_mode="split2") sets the tile-plan kernels' tier;
     the dispatcher still serves panel / pair at "highest", equal to
     tpuspmm.kernels.dispatch.spmm_pallas and to the default config's
-    result bit for bit."""
+    result bit for bit (in JAX's order: the row's serve-time model prices
+    the tile family cheaper on this operand)."""
+    jax_order_row(monkeypatch)
     a_j, a_t = synthetic(density=0.0008, seed=14)  # below the floor
     b = np.random.default_rng(15).uniform(-1, 1, (2000, 256)).astype(
         np.float32)

@@ -4,12 +4,13 @@ tpuspmm's.
 - The registries carry the JAX package's numbers, names and
   ``verified_only`` flags, and the admission predicates they share agree.
 - The dispatcher takes the JAX package's route on every ``data/`` dir when
-  both price with the same cost constants (the JAX package's; the card's
-  step and strip costs are not fitted yet), and under a lowered plan-bytes
-  cap both fall through to the tile family or the gather path alike.
-  Inside the tile family the port's member follows the card's residency
-  rule: staged when the whole B stripe stages in one slab, else
-  C-resident.
+  both read JAX's row (no serve-time model: JAX's fixed order), and under
+  a lowered plan-bytes cap both fall through to the tile family or the
+  gather path alike.  Inside the tile family the port's member follows
+  the card's residency rule: staged when the whole B stripe stages in one
+  slab, else C-resident.  Under the port's H100 row its routes are pinned,
+  and each one that differs from JAX's is cheaper in the port's model and
+  faster in a committed record of the card.
 - ``tpuspmm_torch.cli`` on the CPU gives the same (format, kernel number,
   name, correct) records as ``tpuspmm.cli``, the vendor's name aside.
 """
@@ -152,20 +153,54 @@ def test_routes_match_jax(name, jax_route, jax_constants):
             jax_route(a_j, 256), fmt
 
 
+# the port's route on every data/ dir at w256 under its H100 row, CSR and
+# COO: the routes JAX's rules admit, priced by the serve-time model
+H100_ROUTES = {
+    "large_15120": "cres", "large_20000": "exact", "large_21074": "cres",
+    "large_25605": "cres", "medium_1484": "exact", "medium_2048": "densify",
+    "medium_2880": "exact", "medium_4000": "panel", "medium_4096": "cres",
+    "small_10x10": "densify", "small_210": "densify",
+    "small_32x32": "densify",
+}
+
+
+def committed_routes(operand, width, b_dtype="f32"):
+    """The routes record of one operand in tools/routing_h100.jsonl: every
+    admitted route served through spmm on the card, gated and timed."""
+    from tpuspmm_torch.tools import fit_routing as fr
+
+    recs = [r for r in fr.route_records(fr.read_records([os.path.join(
+        os.path.dirname(fr.__file__), "routing_h100.jsonl")]))
+        if (r["operand"], r["width"], r["b_dtype"]) == (operand, width,
+                                                        b_dtype)]
+    assert len(recs) == 1, (operand, width, b_dtype)
+    return {kind: fr.served_ms(side) for kind, side in recs[0]["routes"]
+            .items()}
+
+
 @pytest.mark.parametrize("name", DIRS)
 def test_routes_match_jax_under_the_h100_fit(name, jax_route, monkeypatch):
     """JAX's dispatcher fed the port's fitted H100 row
-    (``dispatch.H100_FIT``) takes the port's route on every dir: pair
-    never being served at the default config is the reference's pricing
-    under those constants, not a difference of the port.  Fresh
-    containers: the geometries cached on them were priced otherwise."""
+    (``dispatch.H100_FIT``; its serve-time keys are the port's own) and
+    the port's on every dir, CSR and COO: the port's route is pinned
+    (H100_ROUTES); where it is not JAX's route, the port's is the cheaper
+    in the model (``dispatch.route_costs``) and a committed record of the
+    card (the routes record at w256, f32 B) shows it served faster.
+    Fresh containers: the geometries cached on them were priced
+    otherwise."""
     row = dict(jdispatch.thresholds(), **dispatch.thresholds("cpu"))
     monkeypatch.setattr(jdispatch, "thresholds", lambda: row)
     d = data_dir(name)
     for fmt in ("csr", "coo"):
         a_j, a_t = jconvert.load_sparse(d, fmt), convert.load_sparse(d, fmt)
-        assert dispatch.route(a_t, torch.zeros(a_t.shape[1], 256)) == \
-            jax_route(a_j, 256), fmt
+        b = torch.zeros(a_t.shape[1], 256)
+        mine, theirs = dispatch.route(a_t, b), jax_route(a_j, 256)
+        assert mine == H100_ROUTES[name], fmt
+        if mine != theirs:
+            costs = dispatch.route_costs(a_t, b)
+            assert costs[mine] < costs[theirs], fmt
+            measured = committed_routes(name, 256)
+            assert measured[mine] < measured[theirs], fmt
 
 
 TILE_FAMILY = ("staged", "cres", "tile")
@@ -208,6 +243,8 @@ def test_tile_family_serves_at_the_gate(monkeypatch):
     assert dispatch.route(a, b) == "cres"
     assert allclose(dispatch.spmm_pallas(a, b), ref)
     monkeypatch.setattr(cres_spmm, "fits_card_out", lambda tm, dev: False)
+    # a fresh container: the route is cached on the one above
+    a = convert.load_sparse(data_dir("medium_2048"), "csr")
     assert dispatch.route(a, b) == "tile"
     assert allclose(dispatch.spmm_pallas(a, b), ref)
 

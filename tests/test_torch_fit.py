@@ -88,10 +88,13 @@ def test_h100_row_is_the_fit_of_the_committed_records():
             assert key in fit_routing.CONSTANTS
         else:
             assert dispatch.H100_FIT[key] == value
-    # the rest of the row is tools/fit_routing.py's
+    # the rest of the row is tools/fit_routing.py's: the routing constants
+    # and the serve-time model
     assert set(dispatch.H100_FIT) == {k for k, v in fitted.items()
                                       if v is not None} | set(
-        fit_routing.CONSTANTS)
+        fit_routing.CONSTANTS) | {k for terms in
+                                  dispatch.SERVE_TERMS.values()
+                                  for k in terms}
     assert used == 55 and round(rms, 4) == 0.0885
 
 

@@ -6,8 +6,13 @@ package's per-chip rows and against the card's records.
 - ``tools/fit_routing.py``'s fit of the committed ``routing_h100.jsonl``
   gives the row's routing constants, by the rules its docstring states
   (held here on synthetic records too).
-- JAX's ``spmm_pallas`` fed the port's row takes the port's route on small
-  operands on each side of every fitted constant, CSR and COO.
+- On small operands on each side of every fitted constant, CSR and COO,
+  the port prices exactly the routes JAX's rules admit under the port's
+  row (densify iff the density is at or above the floor, and so on), and
+  serves the cheapest: JAX's own route where it is, a route modelled
+  cheaper where it is not.
+- The serve-time model's fit (``fit_routes``) and its regret table on
+  synthetic records; the routes group's measuring code on the CPU.
 - ``--measure`` needs a card; its measuring code runs on the CPU at a
   tiny size, each side served by the route the dispatcher names.
 """
@@ -76,19 +81,27 @@ def jax_route(monkeypatch):
     return route
 
 
-def same_route(pair, jax_route, n=64):
-    """The port's route is JAX's under the port's row, CSR and COO; a
-    tile-family member follows the card's residency rule."""
+def priced_among_jax_admitted(pair, jax_route, n=64):
+    """Under the port's row, CSR and COO: the port's route is the least
+    modelled serve time (``dispatch.route_costs``) among the routes JAX's
+    rules admit; the route JAX's dispatcher takes under the same row is
+    one of them (a tile-family member by the card's residency rule), and
+    where the two differ the port's is modelled cheaper.  Returns the
+    port's route and the priced routes."""
     a_j, a_t = pair
     for fmt_j, fmt_t in ((a_j, a_t), (a_j.to_coo(), a_t.to_coo())):
-        mine = dispatch.route(fmt_t, torch.zeros(a_t.shape[1], n))
+        b = torch.zeros(a_t.shape[1], n)
+        costs = dispatch.route_costs(fmt_t, b)
+        mine = dispatch.route(fmt_t, b)
+        assert mine == dispatch.cheapest(costs)
         theirs = jax_route(fmt_j, n)
         if theirs in TILE_FAMILY:
             k_pad = -(-a_t.shape[1] // 128) * 128
-            assert mine == ("staged" if k_pad <= 768 else "cres")
-        else:
-            assert mine == theirs
-    return mine
+            theirs = "staged" if k_pad <= 768 else "cres"
+        assert theirs in costs or theirs == mine == "xla"
+        if mine != theirs:
+            assert costs[mine] < costs[theirs]
+    return mine, costs
 
 
 def pair_of(sp):
@@ -96,9 +109,16 @@ def pair_of(sp):
     return JCSR.from_scipy(sp), CSR.from_scipy(sp)
 
 
+SERVE_KEYS = {k for terms in dispatch.SERVE_TERMS.values() for k in terms}
+
+
 def test_h100_row_has_jax_rows_keys():
+    """Every key of JAX's rows, and beside them only the serve-time
+    model's."""
     for chip, row in jdispatch._CHIP_THRESHOLDS.items():
-        assert set(ROW) == set(row), chip
+        assert set(ROW) - SERVE_KEYS == set(row), chip
+        assert not SERVE_KEYS & set(row)
+    assert SERVE_KEYS <= set(ROW)
     assert ROW["panel_max_plan_bytes"] == dispatch.thresholds("cpu")[
         "panel_max_plan_bytes"]
 
@@ -118,7 +138,7 @@ def test_fit_of_the_committed_records_is_the_row(capsys):
     records = fr.read_records([RECORDS])
     assert all(r["card"].startswith("NVIDIA H100") for r in records)
     row, notes = fr.fit(records)
-    assert set(row) == set(fr.CONSTANTS) == set(notes)
+    assert set(row) == set(fr.CONSTANTS) | SERVE_KEYS == set(notes)
     for key, value in row.items():
         assert ROW[key] == value, key
     assert fr.main([RECORDS]) == 0
@@ -232,9 +252,11 @@ def uniform_pair(n, density, seed=0):
 @pytest.mark.parametrize("density", sorted(set(fr.DENSITIES) | {
     ROW["densify_min_density"] * 0.9, ROW["densify_min_density"] * 1.1}))
 def test_density_sweep_routes_as_jax(density, jax_route):
+    """Densify is priced iff the density is at or above the row's floor;
+    the route is the cheapest JAX's rules admit."""
     pair = uniform_pair(256, density, seed=3)
-    route = same_route(pair, jax_route)
-    assert (route == "densify") == (pair[1].sparsity
+    _, costs = priced_among_jax_admitted(pair, jax_route)
+    assert ("densify" in costs) == (pair[1].sparsity
                                     >= ROW["densify_min_density"])
 
 
@@ -245,8 +267,8 @@ def test_pruned_pattern_routes_as_jax(side, jax_route):
     d = min(ROW["densify_min_density"] * side, 1.0)
     a_j = JBSR.random_blocks(256, 256, (4, 4), d, seed=4).to_csr()
     a_t = BSR.random_blocks(256, 256, (4, 4), d, seed=4).to_csr()
-    route = same_route((a_j, a_t), jax_route)
-    assert (route == "densify") == (side > 1)
+    _, costs = priced_among_jax_admitted((a_j, a_t), jax_route)
+    assert ("densify" in costs) == (side > 1)
 
 
 @pytest.mark.parametrize("side", [0.5, 2.0])
@@ -264,8 +286,8 @@ def test_densify_cap_routes_as_jax(side, jax_route):
     pair = pair_of(scipy.sparse.csr_matrix((vals, (r, c)),
                                            shape=(rows, cols)))
     assert pair[1].sparsity >= ROW["densify_min_density"]
-    route = same_route(pair, jax_route, n=1)
-    assert (route == "densify") == (side < 1)
+    _, costs = priced_among_jax_admitted(pair, jax_route, n=1)
+    assert ("densify" in costs) == (side < 1)
 
 
 @pytest.mark.parametrize("side", [0.5, 0.9, 1.1, 2.0])
@@ -293,8 +315,10 @@ def test_tile_threshold_routes_as_jax(side, jax_route, monkeypatch):
     assert pair[1].sparsity < ROW["densify_min_density"]
     x = fr.nnz_per_chunk(pair[1])
     assert (x >= ROW["tile_min_nnz_per_chunk"]) == (side > 1)
-    route = same_route(pair, jax_route)
-    assert (route in TILE_FAMILY) == (x >= ROW["tile_min_nnz_per_chunk"])
+    route, costs = priced_among_jax_admitted(pair, jax_route)
+    assert set(costs) <= set(TILE_FAMILY)  # no densify, no panel or pair
+    assert bool(costs) == (route in TILE_FAMILY) == (
+        x >= ROW["tile_min_nnz_per_chunk"])
 
 
 # ---- --measure ---------------------------------------------------------
@@ -380,3 +404,159 @@ def test_served_route_keeps_the_callees_counts():
     finally:
         del xla.spmm_xla.probe
     assert out.shape == (64, 8)
+
+
+# ---- the serve-time model's records and fit ------------------------------
+
+def test_routes_records_cover_the_routes_group():
+    """The committed routes records are the routes group's operands, each
+    in both B dtypes, every admitted route measured at the gate with the
+    terms its family reads; exact serves only the compensated dirs."""
+    records = fr.read_records([RECORDS])
+    got = {(r["family"], r["operand"], r["width"], r["b_dtype"])
+           for r in records if r["constant"] == "routes"}
+    dirs = sorted(d for d in os.listdir(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data"))
+        if not d.endswith(".md"))
+    want = set()
+    for dt in fr.B_DTYPES:
+        want |= {("uniform", f"uniform_{n}_d{d:g}", w, dt)
+                 for n in fr.UNIFORM_DIMS for d in fr.DENSITIES
+                 for w in fr.UNIFORM_WIDTHS}
+        want |= {("pruned", f"pruned_{b}x{b}_s{s:g}", fr.PRUNED_WIDTH, dt)
+                 for b, s in fr.PRUNED}
+        want |= {("sparse", f"uniform_{fr.TILE_DIM}_r{r}", w, dt)
+                 for r in fr.TILE_ROW_NNZ for w in fr.TILE_WIDTHS}
+        want |= {("corpus", d, w, dt) for d in dirs for w in fr.TILE_WIDTHS}
+        want |= {("wide", "medium_4096", 4096, dt),
+                 ("wide", "large_15120", 12600, dt)}
+    assert got == want
+    for r in fr.route_records(records):
+        for kind, side in r["routes"].items():
+            assert side["route"] == kind and side["gate"]
+            assert len(side["ms_rounds"]) == fr.ROUTE_ROUNDS
+            assert set(side["terms"]) == set(
+                dispatch.SERVE_TERMS[dispatch.family(kind)])
+    assert {r["operand"] for r in records
+            if r.get("same_route") == "exact"} == {
+        "large_20000", "medium_1484", "medium_2880"}
+
+
+def routes_rec(fam, routes, operand="op"):
+    """A synthetic routes record: {route: (ms, device_ms, terms)}."""
+    return {"constant": "routes", "family": fam, "operand": operand,
+            "width": 8, "b_dtype": "f32",
+            "routes": {k: {"route": k, "gate": True, "ms": ms,
+                           "device_ms": dev, "terms": terms}
+                       for k, (ms, dev, terms) in routes.items()}}
+
+
+def terms_of(kind, **values):
+    """Every term of ``kind``'s family, 0 but the fixed term and
+    ``values`` (by the key's last word)."""
+    keys = dispatch.SERVE_TERMS[dispatch.family(kind)]
+    out = {k: 0.0 for k in keys}
+    out[keys[0]] = 1.0
+    for word, v in values.items():
+        (key,) = [k for k in keys if k.endswith(word)]
+        out[key] = v
+    return out
+
+
+def test_fit_routes_recovers_host_and_device_terms():
+    """Device terms from the device times, the host term from host-bound
+    serves (panel's and pair's pooled), each family on its own: exact on
+    records that follow the model."""
+    recs = []
+    for x in (1.0, 2.0, 4.0, 8.0, 1.0, 2.0, 4.0, 8.0):
+        recs.append(routes_rec("ab"[len(recs) // 4], {
+            "densify": (max(0.05, 0.02 * x), 0.02 * x,
+                        terms_of("densify", f32_us_per_gmac=x)),
+            "panel": (max(0.09, 0.03 * x), 0.03 * x,
+                      terms_of("panel", tc_us_per_gflop=x)),
+            "pair": (max(0.09, 0.01 * x), 0.01 * x,
+                     terms_of("pair", group_us_per_step=x)),
+            "cres": (max(0.07, 0.01 * x), 0.01 * x,
+                     terms_of("cres", straggler_us_per_mcol=x))}))
+    coef = fr.fit_routes(recs)
+    assert set(coef) == {k for t in dispatch.SERVE_TERMS.values()
+                         for k in t}
+    assert coef["serve_densify_f32_us_per_gmac"] == pytest.approx(20.0)
+    assert coef["serve_panel_tc_us_per_gflop"] == pytest.approx(30.0)
+    assert coef["serve_pair_group_us_per_step"] == pytest.approx(10.0)
+    assert coef["serve_tile_straggler_us_per_mcol"] == pytest.approx(10.0)
+    assert coef["serve_densify_us"] == pytest.approx(50.0)
+    assert coef["serve_tile_us"] == pytest.approx(70.0)
+    assert coef["serve_panel_us"] == coef["serve_pair_us"] == \
+        pytest.approx(90.0)
+    assert coef["serve_densify_bf16_us_per_gmac"] == 0.0
+    # a family with no serve is not fitted; held out, it takes the fit
+    # of every record
+    with pytest.raises(ValueError, match="no usable"):
+        fr.fit_routes([routes_rec("a", {"densify": (
+            0.05, 0.02, terms_of("densify", f32_us_per_gmac=1.0))})])
+    assert fr.fit_routes(recs, held_out="a") == coef
+    summary = fr.regret_summary(recs, dict(ROW, **coef))
+    assert [(x["family"], x["records"]) for x in summary] == [
+        ("all", 8), ("a", 4), ("b", 4)]
+    assert all(x["priced_regret"] == pytest.approx(1.0) for x in summary)
+
+
+def test_priced_and_jax_routes_and_their_regret():
+    """JAX's order takes densify first, then panel or pair by the lower
+    geometry cost; the priced route is the least modelled time; the
+    regret is its serve time over the fastest route's."""
+    row = {k: 0.0 for t in dispatch.SERVE_TERMS.values() for k in t}
+    row.update(serve_densify_us=50.0, serve_panel_us=90.0,
+               serve_pair_us=90.0, serve_tile_us=70.0,
+               serve_panel_model=1.0, serve_pair_model=1.0)
+    rec = routes_rec("a", {
+        "densify": (0.3, 0.3, terms_of("densify")),
+        "panel": (0.2, 0.2, terms_of("panel", model=120.0)),
+        "pair": (0.25, 0.25, terms_of("pair", model=110.0)),
+        "cres": (0.1, 0.03, terms_of("cres"))})
+    assert fr.jax_route(rec) == "densify"
+    assert fr.priced_route(rec, row) == "densify"  # 50 µs host
+    assert fr.route_regret(rec, "densify") == pytest.approx(3.0)
+    del rec["routes"]["densify"]
+    assert fr.jax_route(rec) == "pair"  # the lower cost_us
+    assert fr.priced_route(rec, row) == "cres"  # 70 µs
+    assert fr.route_regret(rec, "cres") == 1.0
+    # a tie in modelled time goes to JAX's order: pair before panel here
+    row["serve_tile_us"] = 200.0
+    assert fr.priced_route(rec, row) == "pair"
+
+
+def test_routes_group_on_the_cpu(monkeypatch):
+    """The routes group at a tiny size on the CPU (host clock): every
+    admitted route of each operand is forced and served by that route, at
+    the gate, timed in rounds; the compensated dirs record exact."""
+    small = [x for x in fr.corpus(width=16)
+             if x[0] in ("small_210", "medium_1484")]
+    monkeypatch.setattr(fr, "corpus", lambda width=None: iter(small))
+    meas = fr.Measurer("cpu", lambda fn: fr.host_time_ms(fn, iters=2),
+                       graph=False, card="cpu")
+    recs = list(fr.routes_records(
+        meas, rounds=2, dims=(128,), widths=(16,), densities=(0.1,),
+        pruned_set=((4, 0.9),), pruned_dim=128, tile_dim=512,
+        row_nnz=(64,), tile_widths=(16,), corpus_widths=(16,), wide=()))
+    assert [(r["family"], r["operand"], r["b_dtype"]) for r in recs] == [
+        (f, n, d) for f, n in (("uniform", "uniform_128_d0.1"),
+                               ("pruned", "pruned_4x4_s0.9"),
+                               ("sparse", "uniform_512_r64"),
+                               *(("corpus", x[0]) for x in small))
+        for d in fr.B_DTYPES]
+    for r in recs:
+        if r["operand"] == "medium_1484":
+            assert r["same_route"] == "exact" and "routes" not in r
+            continue
+        assert set(r["routes"]) == {"densify", "panel", "pair", "staged"}
+        for kind, side in r["routes"].items():
+            assert side["route"] == kind and side["gate"]
+            assert len(side["ms_rounds"]) == 2
+            assert side["ms"] == pytest.approx(np.median(side["ms_rounds"]))
+    # a cut run resumes: what it measured is not measured again
+    done = {(r["operand"], r["width"], r["b_dtype"]) for r in recs}
+    assert not list(fr.routes_records(
+        meas, done, rounds=1, dims=(128,), widths=(16,), densities=(0.1,),
+        pruned_set=(), row_nnz=(), corpus_widths=(), wide=()))

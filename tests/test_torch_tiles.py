@@ -523,16 +523,16 @@ def test_card_residency_rules():
 
 
 # the dispatcher's route on every data/ dir at B width 256 under the H100
-# row (kernels/dispatch.H100_FIT), at the row's plan-bytes cap and with no
-# panel or pair plan admitted (the tile family, or densify above the
-# row's floor): the tile-owner routine must not move them, and the row
-# moves them only with its records (tools/routing_h100.jsonl)
+# row (kernels/dispatch.H100_FIT: the routes JAX's rules admit, priced by
+# the serve-time model), at the row's plan-bytes cap and with no panel or
+# pair plan admitted: the tile-owner routine must not move them, and the
+# row moves them only with its records (tools/routing_h100.jsonl)
 ROUTES_ON_DATA = {
-    "large_15120": ("panel", "cres"), "large_20000": ("exact", "exact"),
-    "large_21074": ("densify", "densify"), "large_25605": ("panel", "cres"),
+    "large_15120": ("cres", "cres"), "large_20000": ("exact", "exact"),
+    "large_21074": ("cres", "cres"), "large_25605": ("cres", "cres"),
     "medium_1484": ("exact", "exact"), "medium_2048": ("densify", "densify"),
     "medium_2880": ("exact", "exact"), "medium_4000": ("panel", "cres"),
-    "medium_4096": ("panel", "cres"), "small_10x10": ("densify", "densify"),
+    "medium_4096": ("cres", "cres"), "small_10x10": ("densify", "densify"),
     "small_210": ("densify", "densify"),
     "small_32x32": ("densify", "densify"),
 }

@@ -48,6 +48,7 @@ from tpuspmm_torch.kernels.panel_spmm import (
     geom_disk_store,
     group_arrays,
     normalize_panel_mode,
+    search_constants,
     panel_matmul,
     plan_tensor,
     plan_values_bf16_exact,
@@ -361,7 +362,7 @@ def _pair_key(n_pad, tm, tk, reorder_rows, plan_bytes_cap, chunk_strips,
     arguments, the device's cost constants and B's value bytes (see
     ``panel_spmm._panel_key``)."""
     return ("pair_geom", tm, tk, reorder_rows, n_pad, plan_bytes_cap,
-            chunk_strips, tuple(sorted(th.items())), b_value_bytes(b_dtype))
+            chunk_strips, search_constants(th), b_value_bytes(b_dtype))
 
 
 def _pair_geometry(e) -> PairGeometry:

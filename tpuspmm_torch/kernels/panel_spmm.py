@@ -101,6 +101,66 @@ def cached_group_index(plan, G: int):
     return cache[G]
 
 
+def layout_group_index(rows, cols, shape, tm: int, tk: int, row_perm=None,
+                       G: int | None = None):
+    """The group index (:func:`strip_group_index`, G = GROUP_ROWS // tm
+    by default) of a single-supertile panel or pair plan of A's
+    coordinates at (tm, tk) and row order ``row_perm``, without building
+    the plan: its strips are the occupied (row strip, k-tile) cells of
+    the permuted A, so ``group_ptr`` and ``group_kt`` equal the plan's
+    and so does ``group_slot >= 0`` (the slots are numbered by cell)."""
+    m, k = shape
+    rows = np.asarray(rows, np.int64)
+    if row_perm is not None:
+        inv = np.empty(m, np.int64)
+        inv[np.asarray(row_perm, np.int64)] = np.arange(m)
+        rows = inv[rows]
+    nkt = max(1, -(-k // tk))
+    cells = np.unique(rows // tm * nkt + np.asarray(cols, np.int64) // tk)
+    n_out = round_up(max(m, tm), tm) // tm
+    index = strip_owner_index(cells // nkt, np.arange(len(cells)),
+                              cells % nkt, n_out)
+    return strip_group_index(*index, n_out, G or GROUP_ROWS // tm)
+
+
+def strip_work(index, tm: int, tk: int, plan_bf16: bool, n: int) -> dict:
+    """What one launch of the strip kernel (K1 / K2) moves and computes,
+    from its group index (``index``: group_ptr, group_kt, group_slot over
+    GROUP_ROWS // tm strips): the (group, k-tile) entries, the B bytes they
+    load from L2 (one tk x n tile each; f32 and bf16 B), and the
+    tensor-core products it runs (each m16 row tile of an entry with a
+    strip present, 16 x tk x n, times the passes of the precision ladder:
+    1 for a bf16 plan with bf16 B, 3 with one f32 operand, 6 with two),
+    against the bf16 rate (989 TFLOP/s, the H100 SXM data sheet), and the
+    heaviest group's entries times those passes (one block walks a
+    group's entries in turn)."""
+    group_ptr, _, group_slot = index
+    group_rows = group_slot.shape[1] * tm
+    rows = np.repeat(group_slot >= 0, tm, axis=1)
+    m16 = int(rows.reshape(-1, group_rows // 16, 16).any(-1).sum())
+    pairs = int(group_ptr[-1])
+    heaviest = int(np.diff(group_ptr).max(initial=0))
+    out = {"group_rows": group_rows, "group_pairs": pairs,
+           "groups": len(group_ptr) - 1, "m16_tiles": m16}
+    for tag, size, b_bf16 in (("f32", 4, False), ("bf16", 2, True)):
+        passes = 1 if plan_bf16 and b_bf16 else 3 if plan_bf16 or b_bf16 \
+            else 6
+        flop = 2.0 * m16 * 16 * tk * n * passes
+        sfx = "" if tag == "f32" else "_bf16"
+        out[f"b_mb_per_call{sfx}"] = pairs * tk * n * size / 1e6
+        out[f"tc_gflop{sfx}"] = flop / 1e9
+        out[f"tc_floor_ms{sfx}"] = flop / 989e12 * 1e3
+        out[f"heaviest_group_steps{sfx}"] = heaviest * passes
+    return out
+
+
+def plan_strip_work(plan, n: int) -> dict:
+    """:func:`strip_work` of a built panel or pair plan's own group index
+    (the one its launch reads)."""
+    return strip_work(cached_group_index(plan, GROUP_ROWS // plan.tm),
+                      plan.tm, plan.tk, plan.a_dense.dtype == np.uint16, n)
+
+
 def group_arrays(plan, G: int) -> dict:
     """The group index over G output strips as host tensors, under the
     names the strip kernel's wrapper reads, and group_order: the groups by
@@ -583,12 +643,21 @@ def _panel_key(n_pad, tm, tk, panel_strips, reorder_rows, plan_bytes_cap,
                th: dict, b_dtype=torch.float32) -> tuple:
     """The container-cache key of a panel geometry: the resolver's
     arguments (a searched tm / tk as its candidate tuple), the device's
-    cost constants and B's value bytes (the autotuner pins the geometry it
-    measured per B dtype; the JAX package's key has no dtype)."""
+    cost constants (:func:`search_constants`) and B's value bytes (the
+    autotuner pins the geometry it measured per B dtype; the JAX package's
+    key has no dtype)."""
     return ("panel_geom", TM_CANDIDATES if tm is None else tm,
             TK_CANDIDATES if tk is None else tk, panel_strips, reorder_rows,
-            n_pad, plan_bytes_cap, tuple(sorted(th.items())),
+            n_pad, plan_bytes_cap, search_constants(th),
             b_value_bytes(b_dtype))
+
+
+def search_constants(th: dict) -> tuple:
+    """The row's items a geometry search reads: all but the dispatcher's
+    serve-time model (``dispatch.SERVE_TERMS``, keys ``serve_*``), which
+    prices routes, not geometries."""
+    return tuple(sorted((k, v) for k, v in th.items()
+                        if not k.startswith("serve_")))
 
 
 def _panel_entry(geom) -> dict | None:

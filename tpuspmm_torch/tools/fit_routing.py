@@ -14,10 +14,12 @@ the two routes it chooses between, in serve time on the card.
 ``--measure`` times each operand below through ``tpuspmm_torch.spmm`` on
 both sides of one constant: "on", the route the row gives with the
 constant moved so that it admits the operand (densify, the tile family,
-the panel plan), and "off", the route with the constant moved past it.
-The row is patched inside the measurement only.  A side's time is CUDA
-events, the median of 20 serves after the plan is built (``ms``), with the
-call's graph replay beside it (``device_ms``) where the route captures.
+the panel plan), and "off", the route with the constant moved past it,
+each in JAX's fixed order (the row without its serve-time model, whose
+constants these are).  The row is patched inside the measurement only.
+A side's time is CUDA events, the median of 20 serves after the plan is
+built (``ms``), with the call's graph replay beside it (``device_ms``)
+where the route captures.
 Each record carries the operand, the B dtype, both sides' routes, times
 and gate verdicts (the reference's gate against an f64 product), the
 seconds the first serve took with its plan build (``build_s``), and the
@@ -61,6 +63,28 @@ Beside the fit set, the "served" group (measured by default, not
 fitted) records every corpus dir's default serve at w256 beside the tile
 family's and cuSPARSE's (``served_records``).
 
+The "routes" group fits the dispatcher's serve-time model (``kernels/
+dispatch.SERVE_TERMS``): for each operand and B dtype, every route the
+row's admission rules admit (densify, panel, pair, the tile family; the
+gather path only where nothing else admits) is served
+through ``spmm``, pinned by a patched row (every other family's fixed
+term infinite, ``forced``), gated and timed, with the terms
+``dispatch.route_features`` reads for it.  The operands: the density
+set (uniform 2048² / 4096², w256 / w1024), the pruned weights (w512),
+uniform 16384² at TILE_ROW_NNZ a row (w256 / w512), the corpus at w256
+and w512 (large_25605 w256, the headline, among them) and WIDE_DIRS at
+their on-disk B, each in a family (uniform, pruned, sparse, corpus,
+wide).  Each route is timed in ROUTE_ROUNDS interleaved rounds (the
+median).  The fit (``fit_routes``) is a non-negative least squares in
+relative error, one route family at a time: the device terms against the
+serves' device time, the host term against the serve time of host-bound
+serves; the coefficients are rounded to 6 significant digits.
+``--table`` prints, for every record with two or more routes measured,
+the regret (serve time over the fastest measured route's) of the route
+the fitted row prices cheapest and of the route JAX's fixed order takes
+under the same admission rules; the geometric means overall and per
+family; and each family's with that family held out of the fit.
+
 Every side is timed in f32 and bf16 B.  A side that misses the gate
 counts as not served (infinite time); a record whose sides both miss is
 not fitted.  ``--table`` prints every record's regret under the fitted
@@ -101,9 +125,16 @@ TILE_WIDTHS = (256, 512)
 GATHER_ROWS = 20000
 GATHER_WIDTHS = (256, 1024)
 SERVES = 20  # timed serves a side, after 3 warm-up serves
+# the routes group times an operand's routes in turns, this many rounds
+# each, and keeps each route's median round: the host work of a serve
+# varies from one window of serves to the next far more than its device
+# work does
+ROUTE_ROUNDS = 5
 PLAN_FLOOR = 128 * MIB
 PLAN_CAP = 512 * MIB
 B_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the routes group's dirs at their on-disk B (4096 and 12600 columns)
+WIDE_DIRS = ("medium_4096", "large_15120")
 CONSTANTS = ("densify_min_density", "densify_max_bytes",
              "tile_min_nnz_per_chunk", "panel_gather_gbps",
              "panel_max_plan_bytes")
@@ -190,11 +221,16 @@ def nnz_per_chunk(a) -> float:
 # ---- measuring --------------------------------------------------------
 
 @contextlib.contextmanager
-def patched_row(overrides: dict):
-    """The dispatcher's row with ``overrides`` in place."""
+def patched_row(overrides: dict, jax_order: bool = False):
+    """The dispatcher's row with ``overrides`` in place; with
+    ``jax_order`` without its serve-time model, so that it routes in
+    JAX's fixed order (the order each constant's two sides are read in)."""
     from tpuspmm_torch.kernels import dispatch
 
-    with mock.patch.dict(dispatch.H100_FIT, overrides):
+    row = {k: v for k, v in dispatch.H100_FIT.items()
+           if not (jax_order and k.startswith("serve_"))}
+    with mock.patch.dict(dispatch.H100_FIT, {**row, **overrides},
+                         clear=True):
         yield
 
 
@@ -248,14 +284,16 @@ class Measurer:
         self.device = torch.device(device)
         self.timer, self.graph, self.card = timer, graph, card
 
-    def side(self, a, b, ref, overrides: dict, resolve_s: float) -> dict:
-        """The route ``overrides`` give, served and timed; ``build_s`` is
-        ``resolve_s`` (the route's resolution) and the first serve."""
+    def side(self, a, b, ref, overrides: dict, resolve_s: float,
+             jax_order: bool = False) -> dict:
+        """The route ``overrides`` give (in JAX's order with
+        ``jax_order``), served and timed; ``build_s`` is ``resolve_s``
+        (the route's resolution) and the first serve."""
         import tpuspmm_torch
         from tpuspmm_torch.kernels import dispatch
         from tpuspmm_torch.utils.compare import allclose
 
-        with patched_row(overrides):
+        with patched_row(overrides, jax_order):
             t0 = time.perf_counter()
             route, plan = dispatch._resolve(a, b)
             out, served = served_route(lambda: tpuspmm_torch.spmm(a, b))
@@ -284,8 +322,9 @@ class Measurer:
 
     def record(self, constant: str, operand: str, a, b_np, dtype: str,
                x: float, on: dict, off: dict, base=None, on_side=None) -> dict:
-        """Both sides of one constant on one operand.  ``on_side``: an
-        "on" side measured already (same operand, same row)."""
+        """Both sides of one constant on one operand, each in JAX's order.
+        ``on_side``: an "on" side measured already (same operand, same
+        row)."""
         from tpuspmm_torch.kernels import dispatch
 
         base = base or {}
@@ -295,7 +334,7 @@ class Measurer:
                "width": int(b.shape[1]), "b_dtype": dtype}
         routes, resolve_s = [], []
         for over in (on, off):
-            with patched_row({**base, **over}):
+            with patched_row({**base, **over}, jax_order=True):
                 t0 = time.perf_counter()
                 route, plan = dispatch._resolve(a, b)
                 resolve_s.append(time.perf_counter() - t0)
@@ -307,8 +346,9 @@ class Measurer:
         else:
             ref = reference(a, b)
             rec["on"] = on_side or self.side(a, b, ref, {**base, **on},
-                                             resolve_s[0])
-            rec["off"] = self.side(a, b, ref, {**base, **off}, resolve_s[1])
+                                             resolve_s[0], jax_order=True)
+            rec["off"] = self.side(a, b, ref, {**base, **off}, resolve_s[1],
+                                   jax_order=True)
             del ref
         rec["card"] = self.card
         return rec
@@ -422,6 +462,103 @@ def bytes_records(meas: Measurer, floor: float, dims=BYTES_DIMS,
                 break
 
 
+def forced(kind: str) -> dict:
+    """Row overrides that pin route ``kind`` among the admitted ones:
+    every serve-model coefficient 0 and every other family's fixed term
+    infinite (the gather path needs none: it serves when nothing else is
+    admitted)."""
+    from tpuspmm_torch.kernels import dispatch
+
+    over = {key: 0.0 for terms in dispatch.SERVE_TERMS.values()
+            for key in terms}
+    for fam, terms in dispatch.SERVE_TERMS.items():
+        if fam != dispatch.family(kind):
+            over[terms[0]] = INF
+    return over
+
+
+def route_operands(dims=UNIFORM_DIMS, widths=UNIFORM_WIDTHS,
+                   densities=DENSITIES, pruned_set=PRUNED,
+                   pruned_dim=PRUNED_DIM, tile_dim=TILE_DIM,
+                   row_nnz=TILE_ROW_NNZ, tile_widths=TILE_WIDTHS,
+                   corpus_widths=TILE_WIDTHS, wide=WIDE_DIRS):
+    """(family, operand, A, B as f32 numpy) of the routes group."""
+    for n in dims:
+        for d in densities:
+            a = uniform(n, d)
+            for w in widths:
+                yield "uniform", f"uniform_{n}_d{d:g}", a, b_uniform(n, w)
+    for block, s in pruned_set:
+        yield ("pruned", f"pruned_{block}x{block}_s{s:g}",
+               pruned(block, s, pruned_dim), b_pruned(pruned_dim,
+                                                      PRUNED_WIDTH))
+    for r in row_nnz:
+        a = uniform(tile_dim, r / tile_dim)
+        for w in tile_widths:
+            yield "sparse", f"uniform_{tile_dim}_r{r}", a, b_uniform(
+                tile_dim, w)
+    for w in corpus_widths:
+        for name, a, b_np in corpus(width=w):
+            yield "corpus", name, a, b_np
+    for name, a, b_np in corpus():
+        if name in wide:
+            yield "wide", name, a, b_np
+
+
+def routes_record(meas: Measurer, fam: str, name: str, a, b_np,
+                  dtype: str, rounds: int = ROUTE_ROUNDS) -> dict:
+    """Every admitted route of one operand, each served, gated and timed
+    with its terms (``routes``; ``ms`` the median of ``rounds`` rounds,
+    ``ms_rounds``, the routes timed in turns); one ``same_route`` where
+    exact or bsr_stream serves before any of them."""
+    import tpuspmm_torch
+    from tpuspmm_torch.kernels import dispatch
+
+    b = torch.from_numpy(b_np).to(meas.device).to(B_DTYPES[dtype])
+    rec = {"constant": "routes", "family": fam, "operand": name,
+           "shape": list(a.shape), "nnz": int(a.nnz),
+           "width": int(b.shape[1]), "b_dtype": dtype}
+    first = dispatch.route(a, b)
+    if first in ("exact", "bsr_stream"):
+        rec["same_route"] = first
+    else:
+        t0 = time.perf_counter()
+        terms = dispatch.route_features(a, b)
+        resolve_s = time.perf_counter() - t0
+        ref = reference(a, b)
+        rec["routes"] = {}
+        kinds = tuple(terms) or ("xla",)
+        for kind in kinds:
+            side = meas.side(a, b, ref, forced(kind) if terms else {},
+                             resolve_s)
+            if side["route"] != kind:
+                raise RuntimeError(f"{name}: forcing {kind} served "
+                                   f"{side['route']}")
+            side["terms"] = terms.get(kind, {})
+            side["ms_rounds"] = [side["ms"]]
+            rec["routes"][kind] = side
+        del ref
+        for _ in range(rounds - 1):
+            for kind in kinds:
+                with patched_row(forced(kind) if terms else {}):
+                    rec["routes"][kind]["ms_rounds"].append(meas.timer(
+                        lambda: tpuspmm_torch.spmm(a, b)))
+        for side in rec["routes"].values():
+            side["ms"] = float(np.median(side["ms_rounds"]))
+    rec["card"] = meas.card
+    return rec
+
+
+def routes_records(meas: Measurer, done=frozenset(), rounds=ROUTE_ROUNDS,
+                   **operands):
+    """The routes group; an (operand, width, B dtype) in ``done`` (a cut
+    run's records) is not measured again."""
+    for fam, name, a, b_np in route_operands(**operands):
+        for dtype in B_DTYPES:
+            if (name, int(b_np.shape[1]), dtype) not in done:
+                yield routes_record(meas, fam, name, a, b_np, dtype, rounds)
+
+
 def served_records(meas: Measurer, width: int = TILE_WIDTHS[0]):
     """Not fitted: every corpus dir at ``width``, its default serve (the
     row as it stands) beside the tile family's (densify and the panel /
@@ -445,11 +582,12 @@ def served_records(meas: Measurer, width: int = TILE_WIDTHS[0]):
                    "served": meas.side(a, b, ref, {},
                                        time.perf_counter() - t0)}
             if route not in ("exact",):
-                with patched_row(tile):
+                with patched_row(tile, jax_order=True):
                     t0 = time.perf_counter()
                     dispatch.route(a, b)
                 rec["tile_family"] = meas.side(a, b, ref, tile,
-                                               time.perf_counter() - t0)
+                                               time.perf_counter() - t0,
+                                               jax_order=True)
             out = vendor.spmm_vendor(a, b)
             rec["cusparse"] = {"gate": allclose(out, ref),
                                "ms": meas.timer(
@@ -547,8 +685,120 @@ def fit_plan_cap(records) -> tuple:
     return int(max(wins)), "the largest plan served faster"
 
 
+def route_records(records, fam=None) -> list:
+    """The routes group's records with routes measured (of family
+    ``fam`` only, where given)."""
+    return [r for r in records if r.get("constant") == "routes"
+            and "routes" in r and fam in (None, r["family"])]
+
+
+def fit_routes(records, held_out=None) -> dict:
+    """The serve-model coefficients (``dispatch.SERVE_TERMS``), per route
+    family over its gate-passing serves (family ``held_out``'s records
+    left out), each by a non-negative least squares in relative error
+    and rounded to 6 significant digits: the device terms against the
+    serves' device time (``device_ms``, the graph replay), the host term
+    (a constant) against the serve time of the host-bound serves, those
+    whose device time is under half their serve time, panel's and pair's
+    together (one host path).  Where the held-out fit leaves a family no
+    serve of either kind, that family's coefficients are the fit of every
+    record's."""
+    from scipy.optimize import nnls
+
+    from tpuspmm_torch.kernels import dispatch
+
+    device = {fam: [] for fam in dispatch.SERVE_TERMS}
+    host = {fam: [] for fam in dispatch.SERVE_TERMS}
+    for r in route_records(records):
+        if r["family"] == held_out:
+            continue
+        for kind, side in r["routes"].items():
+            fam = dispatch.family(kind)
+            if fam not in device or not side.get("gate") \
+                    or not side.get("device_ms"):
+                continue
+            us = side["device_ms"] * 1e3
+            device[fam].append([side["terms"][key] / us
+                                for key in dispatch.SERVE_TERMS[fam][1:]])
+            if side["device_ms"] < side["ms"] / 2:
+                host[fam].append([1.0 / (side["ms"] * 1e3)])
+    # panel and pair serve through one host path (the strip routine's
+    # wrapper): one host term, fitted over both routes' serves
+    host["panel"] = host["pair"] = host["panel"] + host["pair"]
+    coef = {}
+    for fam, keys in dispatch.SERVE_TERMS.items():
+        if held_out and not (device[fam] and host[fam]):
+            full = fit_routes(records)
+            coef.update({key: full[key] for key in keys})
+            continue
+        if not (device[fam] and host[fam]):
+            raise ValueError(f"no usable routes records of {fam}")
+        x, _ = nnls(np.asarray(host[fam]), np.ones(len(host[fam])))
+        y, _ = nnls(np.asarray(device[fam]), np.ones(len(device[fam])))
+        coef.update({key: float(f"{v:.6g}")
+                     for key, v in zip(keys, list(x) + list(y))})
+    return coef
+
+
+def priced_route(rec: dict, row: dict) -> str:
+    """The route the priced dispatcher takes on a routes record under
+    ``row``."""
+    from tpuspmm_torch.kernels import dispatch
+
+    features = {kind: side["terms"] for kind, side in rec["routes"].items()
+                if kind != "xla"}
+    return dispatch.cheapest({kind: dispatch.price(kind, features[kind], row)
+                              for kind in dispatch.jax_rank(features)})
+
+
+def jax_route(rec: dict) -> str:
+    """The route JAX's fixed order takes among a record's admitted routes:
+    densify, then panel or pair by the lower geometry cost_us, then the
+    tile-family member, then the gather path."""
+    from tpuspmm_torch.kernels import dispatch
+
+    rank = dispatch.jax_rank({kind: side["terms"] for kind, side
+                              in rec["routes"].items() if kind != "xla"})
+    return rank[0] if rank else "xla"
+
+
+def route_regret(rec: dict, kind: str) -> float:
+    """Serve time of ``kind`` over the fastest measured route's."""
+    times = {k: served_ms(side) for k, side in rec["routes"].items()}
+    return times[kind] / min(times.values())
+
+
+def compared(records) -> list:
+    """Routes records with two or more routes measured at the gate."""
+    return [r for r in route_records(records)
+            if sum(served_ms(s) < INF for s in r["routes"].values()) >= 2]
+
+
+def regret_summary(records, row: dict) -> list:
+    """Geometric-mean regret over ``compared`` records of the priced
+    dispatcher under ``row`` and of JAX's order, overall and per family,
+    with each family's priced regret under a fit that held it out."""
+    recs = compared(records)
+    out = []
+    for fam in (None,) + tuple(sorted({r["family"] for r in recs})):
+        sub = [r for r in recs if fam in (None, r["family"])]
+        line = {"family": fam or "all", "records": len(sub),
+                "priced_regret": geomean(route_regret(r, priced_route(r, row))
+                                         for r in sub),
+                "jax_order_regret": geomean(route_regret(r, jax_route(r))
+                                            for r in sub)}
+        if fam is not None:
+            held = dict(row, **fit_routes(records, held_out=fam))
+            line["held_out_priced_regret"] = geomean(
+                route_regret(r, priced_route(r, held)) for r in sub)
+        out.append(line)
+    return out
+
+
 def fit(records) -> tuple:
-    """(row, notes): the five routing constants and how each was read."""
+    """(row, notes): the five routing constants and how each was read,
+    and, where the records hold a routes group, the serve-time model's
+    coefficients."""
     notes = {}
     floor, g = least_regret(records, "densify_min_density")
     notes["densify_min_density"] = f"least regret, geomean {g:.4f}"
@@ -568,6 +818,12 @@ def fit(records) -> tuple:
            "tile_min_nnz_per_chunk": tile,
            "panel_max_plan_bytes": plan,
            "panel_gather_gbps": round(gather[0]["gbps"], 1)}
+    if route_records(records):
+        coef = fit_routes(records)
+        row.update(coef)
+        notes.update({key: "non-negative least squares in relative error, "
+                      f"{len(route_records(records))} routes records"
+                      for key in coef})
     return row, notes
 
 
@@ -623,10 +879,11 @@ def measure(out: str, groups) -> int:
         records.append(rec)
         with open(out, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        sides = [rec[s] for s in ("on", "off", "served", "tile_family")
+                 if s in rec] + list(rec.get("routes", {}).values())
         side = ("same route " + rec["same_route"] if "same_route" in rec
-                else " / ".join(f"{rec[s]['route']} {rec[s]['ms']:.4f}"
-                                for s in ("on", "off", "served",
-                                          "tile_family") if s in rec))
+                else " / ".join(f"{x['route']} {x['ms']:.4f}"
+                                for x in sides))
         print(f"# {rec['constant']} {rec.get('operand', '')} "
               f"w{rec['width']} {rec.get('b_dtype', '')}: {side}",
               file=sys.stderr, flush=True)
@@ -648,6 +905,11 @@ def measure(out: str, groups) -> int:
     if "served" in groups:
         for rec in served_records(meas):
             keep(rec)
+    if "routes" in groups:
+        done = {(r["operand"], r["width"], r["b_dtype"]) for r in records
+                if r.get("constant") == "routes"}
+        for rec in routes_records(meas, done):
+            keep(rec)
     return 0
 
 
@@ -660,11 +922,14 @@ def main(argv=None) -> int:
     p.add_argument("--measure", action="store_true",
                    help="measure on the card, appending to --out")
     p.add_argument("--out", default="chiprun_out/routing_h100.jsonl")
-    p.add_argument("--groups", default=",".join(CONSTANTS + ("served",)),
+    p.add_argument("--groups", default=",".join(CONSTANTS + ("served",
+                                                             "routes")),
                    help="constants to measure (densify_max_bytes also "
                         "measures panel_max_plan_bytes, after the floor), "
-                        "and \"served\": the corpus's default serves beside "
-                        "the tile family and cuSPARSE, not fitted")
+                        "\"served\": the corpus's default serves beside "
+                        "the tile family and cuSPARSE, not fitted, and "
+                        "\"routes\": every admitted route of each operand, "
+                        "for the serve-time model (resumes a cut run)")
     p.add_argument("--table", action="store_true",
                    help="print every record's regret, one JSON line each")
     p.add_argument("--against", default="",
@@ -694,6 +959,19 @@ def main(argv=None) -> int:
                     "geomean_regret_against": (
                         geomean(regret(r, against[c]) for r in recs)
                         if c in against else None)}))
+        for r in compared(records):
+            chosen, theirs = priced_route(r, row), jax_route(r)
+            print(json.dumps({
+                "family": r["family"], "operand": r["operand"],
+                "width": r["width"], "b_dtype": r["b_dtype"],
+                "routes_ms": {k: s["ms"] if s.get("gate") else None
+                              for k, s in r["routes"].items()},
+                "priced": chosen, "priced_regret": route_regret(r, chosen),
+                "jax_order": theirs,
+                "jax_order_regret": route_regret(r, theirs)}))
+        for line in regret_summary(records, row) if compared(records) \
+                else ():
+            print(json.dumps({"routes": line}))
     cards = sorted({r["card"] for r in records if "card" in r})
     print(json.dumps({"fitted": row, "notes": notes, "records": len(records),
                       "cards": cards}))
