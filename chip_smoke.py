@@ -85,11 +85,14 @@ Prints one JSON object per phase:
    then the corpus dirs large_15120, large_21074, medium_2048 and
    medium_4096, each served by the route the priced dispatcher names
    (``dispatch.route``, which must be SERVED_ROUTES', the list the CPU
-   tests pin: the headline's bf16 serve reaches the panel kernel and
-   medium_2048's the pair kernel), checked at the gate and timed beside
-   cuSPARSE on the same operand, with every admitted route's modelled µs.
-   The counts are read as this path's launches (panel, pair and
-   C-resident must have run).  Then the BSR serving
+   tests pin: large_21074's bf16 serve reaches the panel kernel, the
+   others the C-resident one), checked at the gate and timed beside
+   cuSPARSE on the same operand, with every admitted route's modelled µs;
+   each serve's device time too (``device_ms``: the same ``spmm``
+   replayed in a CUDA graph), and each corpus dir's bf16 serve, pinned
+   the same way, at the gate, timed the same two ways.  The counts are
+   read as this path's launches (every kernel SERVED_ROUTES names must
+   have run).  Then the BSR serving
    path in a window of its own: ``tpuspmm_torch.spmm`` on weights (a)-(c)
    in f32 and bf16, each served by K6 and by no other kernel, at the gate;
    the 4 x 4 weight at 10% block density (packing refused, as in the
@@ -105,6 +108,16 @@ Prints one JSON object per phase:
    run: data for the next refit and for the fit's effect, not a check.
    The record ``main_path``'s ``hbm_roofline_frac`` is the least bytes
    over the card's data-sheet rate;
+5c. served handles: for K1, K2 (the headline's panel and pair plans),
+   K3, K4, K5a, K5b (the headline's tile plan) and K6
+   (weight (a)), f32 and bf16 B, the launch a served handle holds
+   (``dispatch._launch``; K5b's ``cres_spmm.cres_launch``, it has no
+   route) against the entry point on the same plan, bit for bit, and
+   against the plain version (PLAIN_TOL; K6_TOL for K6); the handle's
+   call timed beside the entry point's and its graph replay; an f16 B
+   refused by the bound launch and by the entry point.  Then the headline
+   served end to end: ``spmm``'s time beside its handle's launch alone
+   and the device time, cuSPARSE beside;
 6. engine: every launch count zeroed, then ``tpuspmm_torch.cli.main``
    runs ``--csr --coo`` and ``--bsr --ell`` on large_25605 ``--width 256``
    in f32 and bf16 B, ``--csr`` on medium_2048 and medium_4096 and
@@ -265,13 +278,18 @@ WIDTH = 256
 MAIN_CORPUS = ("large_15120", "large_21074", "medium_2048", "medium_4096")
 # the routes the priced dispatcher serves the headline (w256) and
 # MAIN_CORPUS (on-disk B, large_21074 w256) by, (dir, B dtype): the list
-# tests/test_torch_route_model.py pins on the CPU.  The headline's bf16
-# serve reaches K1 and medium_2048's K2
-SERVED_ROUTES = {(HEADLINE, "f32"): "cres", (HEADLINE, "bf16"): "panel",
+# tests/test_torch_route_model.py pins on the CPU.  large_21074's bf16
+# serve reaches K1; no default serve reaches K2 (the engine's window
+# counts its launches)
+SERVED_ROUTES = {(HEADLINE, "f32"): "cres", (HEADLINE, "bf16"): "cres",
                  ("large_15120", "f32"): "cres",
+                 ("large_15120", "bf16"): "cres",
                  ("large_21074", "f32"): "cres",
-                 ("medium_2048", "f32"): "pair",
-                 ("medium_4096", "f32"): "cres"}
+                 ("large_21074", "bf16"): "panel",
+                 ("medium_2048", "f32"): "cres",
+                 ("medium_2048", "bf16"): "cres",
+                 ("medium_4096", "f32"): "cres",
+                 ("medium_4096", "bf16"): "cres"}
 # the dir outside MAIN_CORPUS whose default serve is panel / pair: its
 # model_fit record (its values are extreme, so it is not held to the gate)
 FIT_EXTRA = "medium_4000"
@@ -1702,6 +1720,15 @@ def main() -> int:
         check(len(ran) == 1, f"one kernel served the call (got {ran})")
         return out, ran[0]
 
+    def replay_ms(call):
+        """The call's device time (graph replay), or None where the route
+        cannot be captured (the gather path synchronises)."""
+        try:
+            return device_ms(call)
+        except RuntimeError as e:
+            emit("capture_error", error=str(e).splitlines()[0][:200])
+            return None
+
     def modelled_kernel(a, n_pad, config) -> str:
         geom, pgeom = resolved(a, n_pad, config.panel_strips)
         return "pair" if pgeom.cost_us < geom.cost_us else "panel"
@@ -1744,6 +1771,10 @@ def main() -> int:
     check(bf16_correct, f"main path bf16 gate vs f64 oracle ({kernel16})")
     kernel_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b32))
     bf16_ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b16))
+    # the same serves replayed in a CUDA graph: their device time, beside
+    # kernel_ms, which carries the serve's host work as well
+    serve_device_ms = device_ms(lambda: tpuspmm_torch.spmm(a, b32))
+    bf16_device_ms = device_ms(lambda: tpuspmm_torch.spmm(a, b16))
     plain_ms, geom32 = served_plan(a, b32)
     emit("main_path", **{
         "metric": f"csr_spmm_gflops_{HEADLINE}_w{WIDTH}",
@@ -1754,12 +1785,14 @@ def main() -> int:
         "unit": "GFLOP/s",
         "vs_baseline": vendor_ms / kernel_ms,
         "kernel_ms": kernel_ms,
+        "device_ms": serve_device_ms,
         "plain_ms": plain_ms,
         "vendor_ms": vendor_ms,
         "nnz_per_s": a.nnz / (kernel_ms * 1e-3),
         "hbm_roofline_frac": sol_s / (kernel_ms * 1e-3),
         "correct": correct,
         "bf16_serving_ms": bf16_ms,
+        "bf16_device_ms": bf16_device_ms,
         "bf16_serving_correct": bf16_correct,
         "geometry": geom32,
         "gpu": gpu,
@@ -1784,23 +1817,39 @@ def main() -> int:
               f"{SERVED_ROUTES[name, 'f32']}")
         check(allclose(out, ref), f"{name} dispatch gate")
         ms = cuda_time_ms(lambda: tpuspmm_torch.spmm(ca, b))
+        serve_device = device_ms(lambda: tpuspmm_torch.spmm(ca, b))
+        # the same operand with bf16 B, by the route the model prices
+        cb16 = b.to(torch.bfloat16)
+        out16, served16 = fit_routing.served_route(
+            lambda: tpuspmm_torch.spmm(ca, cb16))
+        check(served16 == dispatch.route(ca, cb16)
+              == SERVED_ROUTES[name, "bf16"],
+              f"{name} bf16 served {served16}, dispatch.route names "
+              f"{dispatch.route(ca, cb16)}, expected "
+              f"{SERVED_ROUTES[name, 'bf16']}")
+        check(allclose(out16, oracle.spmm_scipy_oracle(
+            ca, cb16.float().cpu().numpy())), f"{name} bf16 dispatch gate")
         # the library call on the same operand, timed here only
         lib_ms = cuda_time_ms(lambda: vendor.spmm_vendor(ca, b))
         emit("corpus", **report.make_record(
             testcase=name, sparsity=ca.sparsity, fmt="csr", kernel_type=0,
             kernel_name=served, correct=True, kernel_ms=ms, n=b.shape[1],
-            device=gpu, extra={"bSource": cdense.b_source,
-                               "cusparse_ms": lib_ms,
-                               "vs_cusparse": lib_ms / ms,
-                               "route_costs_us": dispatch.route_costs(ca,
-                                                                      b)}))
+            device=gpu, extra={
+                "bSource": cdense.b_source, "device_ms": serve_device,
+                "bf16_kernel": served16,
+                "bf16_kernel_ms": cuda_time_ms(
+                    lambda: tpuspmm_torch.spmm(ca, cb16)),
+                "bf16_device_ms": replay_ms(
+                    lambda: tpuspmm_torch.spmm(ca, cb16)),
+                "cusparse_ms": lib_ms, "vs_cusparse": lib_ms / ms,
+                "route_costs_us": dispatch.route_costs(ca, b)}))
         corpus[name] = (ca, b, ref)
-        del out
+        del out, out16, cb16
 
     launches = {n: fn.launches for n, fn in serving.items()}
     emit("serving_path_launches", **launches,
          note="tpuspmm_torch.spmm calls only (serves, timing loops)")
-    for name in ("panel", "pair", "cres"):
+    for name in sorted(set(SERVED_ROUTES.values()) & set(serving)):
         check(launches[name] > 0, f"{name} kernel launched on the serving "
                                   "path")
 
@@ -1894,6 +1943,106 @@ def main() -> int:
     emit("bsr_serving_path_launches", **bsr_launches,
          note="tpuspmm_torch.spmm calls on BSR weights only")
     check(bsr_launches["bsr_stream"] > 0, "K6 launched on the serving path")
+
+    # ---- 5c. served handles: bound launches against the entry points -----
+    # Each kernel's launch as a served handle holds it (bound once per
+    # plan, B width, B dtype and device; kernels/*_cuda.py bind) against
+    # its entry point on the same plan, bit for bit, and against its plain
+    # version; the handle's own call timed beside the entry point's and
+    # its graph replay.  Launches here are outside every window.
+    t_handles = time.perf_counter()
+    config = Config()
+    tplan = tiles.plan_from_container(a, tile_m=config.tile_m,
+                                      tile_k=config.tile_k,
+                                      chunk=config.chunk_nnz)
+    # K1 and K2 on the headline's panel and pair plans (phase 3's, at the
+    # geometries the dispatcher resolves)
+    panel_plan, pair_plan = plans["panel"], plans["pair"]
+    k6_weight = weights["a"]
+    handle_cases = {
+        # kernel: (operand, what it serves from, B pair, the handle's
+        # launch for a B, the entry point, the plain version, tolerance)
+        "panel": (a, panel_plan, (b32, b16),
+                  lambda b: dispatch._launch("panel", a, panel_plan, b,
+                                             config),
+                  lambda b: panel_spmm.spmm_panel(panel_plan, b),
+                  lambda b: panel_spmm.panel_spmm_plain(panel_plan, b),
+                  PLAIN_TOL),
+        "pair": (a, pair_plan, (b32, b16),
+                 lambda b: dispatch._launch("pair", a, pair_plan, b,
+                                            config),
+                 lambda b: pair_spmm.spmm_pair(pair_plan, b),
+                 lambda b: pair_spmm.pair_spmm_plain(pair_plan, b),
+                 PLAIN_TOL),
+        **{name: (a, tplan, (b32, b16),
+                  lambda b, _n=name: dispatch._launch(_n, a, tplan, b,
+                                                      config),
+                  lambda b, _n=name: tile_entries[_n][1](tplan, b, "split"),
+                  lambda b, _n=name: tile_entries[_n][2](tplan, b, "split"),
+                  PLAIN_TOL)
+           for name in ("tile", "staged", "cres")},
+        # K5b has no route (as in JAX): the launch a handle would hold
+        "cres_kloop": (a, tplan, (b32, b16),
+                       lambda b: cres_spmm.cres_launch(tplan, b, "split",
+                                                       "kloop"),
+                       lambda b: cres_spmm.spmm_cres_kloop(tplan, b),
+                       lambda b: cres_spmm.cres_spmm_plain(tplan, b, "split",
+                                                           "kloop"),
+                       PLAIN_TOL),
+        "bsr_stream": (k6_weight, k6_weight, (pb32, pb16),
+                       lambda b: dispatch._launch("bsr_stream", k6_weight,
+                                                  k6_weight, b, config),
+                       lambda b: bsr_spmm.spmm_bsr_stream(k6_weight, b),
+                       lambda b: bsr_spmm.bsr_spmm_plain(k6_weight, b),
+                       K6_TOL),
+    }
+    handle_stats = {}
+    for name, (op, src, bs, launch_of, entry, plain, tol) in \
+            handle_cases.items():
+        rec = {}
+        for b in bs:
+            tag = "f32" if b.dtype == torch.float32 else "bf16"
+            launch = launch_of(b)
+            got, want = launch(b), entry(b)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{name} {tag}: the handle's "
+                                          "output equals its entry point's")
+            ref = plain(b)
+            err = max_abs_err(got, ref)
+            scale = float(ref.abs().max())
+            check(err <= tol * scale, f"{name} {tag} handle |kernel - plain| "
+                                      f"{err} <= {tol}*{scale}")
+            rec[tag] = {"max_abs_err": err, "max_abs_c": scale,
+                        "handle_ms": cuda_time_ms(lambda: launch(b)),
+                        "entry_ms": cuda_time_ms(lambda: entry(b)),
+                        "device_ms": device_ms(lambda: launch(b))}
+            del got, want, ref
+        # an f16 B is refused by the bound launch and by the entry point,
+        # before anything launches
+        b_f16 = bs[0].to(torch.float16)
+        for what, call in (("handle", lambda: launch_of(bs[0])(b_f16)),
+                           ("entry", lambda: entry(b_f16))):
+            try:
+                call()
+            except ValueError as e:
+                check("f32/bf16" in str(e) or "f32 or bf16" in str(e),
+                      f"{name} {what}: f16 B refused by its type ({e})")
+            else:
+                check(False, f"{name} {what}: an f16 B was launched")
+        emit("served_handle", kernel=name, gpu=gpu,
+             power_limit=card.split(",")[-1].strip(), **rec)
+        handle_stats[name] = rec
+    # the served path end to end: spmm's repeat serve against the bound
+    # launch it holds, on the headline
+    for b in (b32, b16):
+        tag = "f32" if b.dtype == torch.float32 else "bf16"
+        h = dispatch.served(a, b)
+        emit("served_headline", b_dtype=tag, route=h.route,
+             spmm_ms=cuda_time_ms(lambda: tpuspmm_torch.spmm(a, b)),
+             handle_ms=cuda_time_ms(lambda: h.launch(b)),
+             device_ms=device_ms(lambda: h.launch(b)), vendor_ms=vendor_ms,
+             gpu=gpu, power_limit=card.split(",")[-1].strip())
+    emit("served_handle_phase", seconds=time.perf_counter() - t_handles)
 
     # ---- 6. engine: tpuspmm_torch.cli ------------------------------------
     os.makedirs(PRUNED_DIR, exist_ok=True)
@@ -2423,6 +2572,10 @@ def main() -> int:
                 "to K3's; K3 and K4 on the owner routine")
             if name in clustered:
                 line["cluster"] = chunk_cuda.CLUSTER
+        # the served handle's bound launch called alone (phase 5c)
+        line.update({"handle_ms": handle_stats[name]["f32"]["handle_ms"],
+                     "handle_ms_bf16": handle_stats[name]["bf16"][
+                         "handle_ms"]})
         line.update({"library_call": "torch.sparse CSR @ B (cuSPARSE)",
                      "shapes": f"{HEADLINE} w{WIDTH}"})
         lines.append(line)
@@ -2446,6 +2599,8 @@ def main() -> int:
         "ms_bf16": ka["bf16"]["ms"], "plain_ms_bf16": ka["bf16"]["plain_ms"],
         "device_ms": ka["f32"]["device_ms"],
         "device_ms_bf16": ka["bf16"]["device_ms"],
+        "handle_ms": handle_stats["bsr_stream"]["f32"]["handle_ms"],
+        "handle_ms_bf16": handle_stats["bsr_stream"]["bf16"]["handle_ms"],
         "bound_ms": ka["bound_ms"], "bound_by": ka["bound_by"],
         "w1024": {"device_ms": kw1024["f32"]["device_ms"],
                   "device_ms_bf16": kw1024["bf16"]["device_ms"],

@@ -78,8 +78,11 @@ def test_spmm_matches_tpuspmm_pallas(method):
     assert allclose(got, exact_ref) and allclose(ref, exact_ref)
 
 
-def test_dispatch_serves_the_cheaper_model():
-    # below the row's densify floor: the panel / pair step decides
+def test_dispatch_serves_the_cheaper_model(monkeypatch):
+    # below the row's densify floor, in JAX's order (the row's serve-time
+    # model prices the tile family cheaper on this operand): the panel /
+    # pair step decides, by the lower geometry cost
+    jax_order_row(monkeypatch)
     a_j, a_t = synthetic(density=0.0008, seed=3)
     assert a_t.sparsity < dispatch.thresholds("cpu")["densify_min_density"]
     b = torch.from_numpy(np.random.default_rng(2).uniform(
@@ -109,7 +112,7 @@ FITTED_ROUTES = {
     "large_21074": ("cres", (8, 16, 512, "natural"), (32, "natural")),
     "large_25605": ("cres", (8, 16, 128, "natural"), (8, "natural")),
     "medium_1484": ("exact", (8, 16, 128, "natural"), (16, "natural")),
-    "medium_2048": ("densify", (8, 16, 128, "natural"), (8, "natural")),
+    "medium_2048": ("cres", (8, 16, 128, "natural"), (8, "natural")),
     "medium_2880": ("exact", (8, 8, 128, "signature"), (16, "signature")),
     "medium_4000": ("panel", (8, 16, 128, "natural"), (16, "natural")),
     "medium_4096": ("cres", (16, 8, 512, "signature"), (32, "signature")),
@@ -327,6 +330,26 @@ def test_thresholds_and_roofline_tables():
     assert rec["cudaKernelTimeMs"] == rec["cudaTotalTimeMs"] == 0.5
     assert rec["correct"] == "1"
 
+
+
+def test_unrecorded_card_is_served_with_the_h100_row(monkeypatch):
+    """A CUDA card whose name is not on record routes with the H100 row,
+    as the JAX package serves an unknown chip with a known row, and warns
+    once; the roofline's data-sheet rate still raises for it."""
+    import warnings
+
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "Some Other Card")
+    monkeypatch.setattr(dispatch, "_UNRECORDED", set())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert dispatch.thresholds("cuda:0") == dispatch.H100_FIT
+        assert dispatch.thresholds("cuda:0") == dispatch.H100_FIT
+    assert [str(w.message) for w in caught] == [
+        "no routing row on record for 'Some Other Card': routing with the "
+        "H100 row (H100_FIT)"]
+    with pytest.raises(KeyError):
+        report.hbm_gbps("Some Other Card")
 
 
 def test_host_b_goes_to_the_card_unless_asked(monkeypatch):

@@ -139,9 +139,11 @@ def jax_route(monkeypatch):
 
 @pytest.fixture
 def jax_constants(monkeypatch):
-    """Both dispatchers price with the JAX package's cost constants."""
+    """Both dispatchers price with the JAX package's cost constants (the
+    port's row replaced, so that a served handle built under the H100 row
+    is built again)."""
     row = dict(jdispatch.thresholds())
-    monkeypatch.setattr(dispatch, "thresholds", lambda device="cpu": row)
+    monkeypatch.setattr(dispatch, "H100_FIT", row)
     return row
 
 
@@ -157,7 +159,7 @@ def test_routes_match_jax(name, jax_route, jax_constants):
 # COO: the routes JAX's rules admit, priced by the serve-time model
 H100_ROUTES = {
     "large_15120": "cres", "large_20000": "exact", "large_21074": "cres",
-    "large_25605": "cres", "medium_1484": "exact", "medium_2048": "densify",
+    "large_25605": "cres", "medium_1484": "exact", "medium_2048": "cres",
     "medium_2880": "exact", "medium_4000": "panel", "medium_4096": "cres",
     "small_10x10": "densify", "small_210": "densify",
     "small_32x32": "densify",

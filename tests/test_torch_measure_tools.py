@@ -28,7 +28,8 @@ from tpuspmm_torch.data import data_dir
 from tpuspmm_torch.formats import convert
 from tpuspmm_torch.kernels import csr_vmem, pair_spmm, panel_spmm, tile_spmm
 from tpuspmm_torch.ops import oracle
-from tpuspmm_torch.tools import hbm_control, profile_variants, weak_scaling
+from tpuspmm_torch.tools import (hbm_control, profile_variants,
+                                 serve_compare, weak_scaling)
 from tpuspmm_torch.utils.compare import allclose
 
 RANDOM = ["--random", "256x256x0.1", "--width", "64"]
@@ -114,6 +115,7 @@ def test_tools_need_a_card_unless_asked_for_the_cpu():
     assert profile_variants.main(RANDOM) == 2
     assert hbm_control.main([]) == 2
     assert weak_scaling.main(["--devices", "1"]) == 2
+    assert serve_compare.main(["."]) == 2
 
 
 def test_hbm_control_three_records_from_the_ports_plans(capsys):

@@ -335,9 +335,9 @@ def test_a_row_without_the_model_routes_as_jax(name, jax_route,
 # port's route under its H100 row
 ROUTING_PINS = {
     ("pruned_4x4_s0.9", 512, "f32"): "densify",
-    ("pruned_4x4_s0.9", 512, "bf16"): "cres",
+    ("pruned_4x4_s0.9", 512, "bf16"): "panel",
     ("pruned_128x128_s0.9", 512, "f32"): "cres",
-    ("pruned_128x128_s0.9", 512, "bf16"): "panel",
+    ("pruned_128x128_s0.9", 512, "bf16"): "cres",
     ("uniform_2048_d0.016", 1024, "f32"): "cres",
     ("uniform_2048_d0.1", 1024, "f32"): "densify",
     ("large_21074", 512, "f32"): "cres",

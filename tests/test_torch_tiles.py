@@ -530,7 +530,7 @@ def test_card_residency_rules():
 ROUTES_ON_DATA = {
     "large_15120": ("cres", "cres"), "large_20000": ("exact", "exact"),
     "large_21074": ("cres", "cres"), "large_25605": ("cres", "cres"),
-    "medium_1484": ("exact", "exact"), "medium_2048": ("densify", "densify"),
+    "medium_1484": ("exact", "exact"), "medium_2048": ("cres", "cres"),
     "medium_2880": ("exact", "exact"), "medium_4000": ("panel", "cres"),
     "medium_4096": ("cres", "cres"), "small_10x10": ("densify", "densify"),
     "small_210": ("densify", "densify"),

@@ -8,6 +8,7 @@ here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -60,20 +61,13 @@ build = LIBRARY.build
 load = LIBRARY.load
 
 
-def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,
-               row_order: torch.Tensor, planes: torch.Tensor,
-               b: torch.Tensor, m: int, block_size) -> torch.Tensor:
-    """Launch K6 on the current stream: C (m, n) f32 from the BSR arrays
-    (indptr, indices int32), the block rows most stored blocks first
-    (row_order int32), the blocks' term planes (``planes_shape``, int16,
-    16-byte aligned; all on b's device) and a contiguous (k, n) f32 or bf16
-    B.  Raises on what the kernel does not take and on a refused launch."""
-    if b.device.type != "cuda":
-        raise ValueError(f"{ENTRY}: b must be a CUDA tensor, got {b.device}")
-    if (b.dim() != 2 or b.dtype not in (torch.float32, torch.bfloat16)
-            or not b.is_contiguous()):
-        raise ValueError(f"{ENTRY}: b must be a contiguous 2-D f32/bf16 "
-                         f"tensor, got {tuple(b.shape)} {b.dtype}")
+def _checked(indptr: torch.Tensor, indices: torch.Tensor,
+             row_order: torch.Tensor, planes: torch.Tensor, b: torch.Tensor,
+             m: int, block_size) -> tuple:
+    """Refuse what K6 does not take, before any launch: B (as
+    ``cuda_build.check_b``) and the BSR arrays' device, dtype,
+    contiguity, shape and alignment; (block rows, bh, bw)."""
+    cuda_build.check_b(ENTRY, b)
     for name, t, want in (("indptr", indptr, torch.int32),
                           ("indices", indices, torch.int32),
                           ("row_order", row_order, torch.int32),
@@ -96,16 +90,40 @@ def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,
     if num_block_rows * bh < m:
         raise ValueError(f"{ENTRY}: {num_block_rows} block rows of {bh} "
                          f"cover fewer than m={m} rows")
-    b_bf16 = b.dtype == torch.bfloat16
+    return num_block_rows, bh, bw
+
+
+def bind(indptr: torch.Tensor, indices: torch.Tensor,
+         row_order: torch.Tensor, planes: torch.Tensor, b: torch.Tensor,
+         m: int, block_size, counter=None) -> cuda_build.Launch:
+    """K6's launch bound to the BSR arrays (indptr, indices int32), the
+    block rows most stored blocks first (row_order int32) and the blocks'
+    term planes (``planes_shape``, int16, 16-byte aligned; all on b's
+    device) for B of b's shape, dtype and device: C (m, n) f32;
+    ``counter.launches`` counts its launches.  Checks the arrays once,
+    here, and raises on what the kernel does not take; each launch takes
+    the B staging build its B's alignment allows (``vector_staging``)."""
+    num_block_rows, bh, bw = _checked(indptr, indices, row_order, planes, b,
+                                      m, block_size)
     k, n = (int(s) for s in b.shape)
-    lib = load()
-    # the ctypes launch goes to the current device: make it b's
-    with torch.cuda.device(b.device):
-        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-        rc = getattr(lib, ENTRY)(
-            indptr.data_ptr(), indices.data_ptr(), row_order.data_ptr(),
-            planes.data_ptr(), b.data_ptr(), int(b_bf16),
-            int(vector_staging(b)), out.data_ptr(), num_block_rows, m, k, n,
-            bh, bw, torch.cuda.current_stream(b.device).cuda_stream)
-    cuda_build.check_launch(lib, "bsr_spmm_error_string", ENTRY, rc)
-    return out
+    keep = (indptr, indices, row_order, planes)
+    head = tuple(t.data_ptr() for t in keep)
+    b_bf16 = int(b.dtype == torch.bfloat16)
+    rows_aligned = n * b.element_size() % 16 == 0
+    tail = (num_block_rows, m, k, n, bh, bw)
+
+    def args(b_ptr, out_ptr, stream):
+        vector = int(rows_aligned and b_ptr % 16 == 0)  # vector_staging(b)
+        return (*head, b_ptr, b_bf16, vector, out_ptr, *tail, stream)
+
+    return cuda_build.Launch(sys.modules[__name__], ENTRY,
+                             "bsr_spmm_error_string", ENTRY, b, m, args, keep,
+                             counter)
+
+
+def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,
+               row_order: torch.Tensor, planes: torch.Tensor,
+               b: torch.Tensor, m: int, block_size) -> torch.Tensor:
+    """Launch K6 on the current stream (:func:`bind`, then the launch),
+    for a caller that launches a matrix once."""
+    return bind(indptr, indices, row_order, planes, b, m, block_size)(b)

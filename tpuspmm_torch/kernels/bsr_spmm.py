@@ -160,20 +160,34 @@ def bsr_spmm_plain(a: BSR, b: torch.Tensor) -> torch.Tensor:
     return out[:a.shape[0]]
 
 
+def stream_launch(a: BSR, b: torch.Tensor):
+    """:func:`spmm_bsr_stream`'s launch on the card for B of b's shape,
+    dtype and device (contiguous): K6 bound to the container's indptr,
+    indices, block-row order and term planes (``bsr_cuda.bind``), once,
+    and cached on the container; ``launch(b)`` is C."""
+    _check(a, b)
+    cache = container_cache(a)
+    key = ("bsr_launch", int(b.shape[1]), b.dtype, b.device)
+    if key not in cache:
+        indptr, indices, order, planes = xla.cached_device(
+            a, "bsr_arrays", b.device,
+            lambda: (a.indptr, a.indices, block_row_order(a),
+                     term_planes(a)))
+        cache[key] = bsr_cuda.bind(indptr, indices, order, planes, b,
+                                   a.shape[0], a.block_size,
+                                   counter=spmm_bsr_stream)
+    return cache[key]
+
+
 def spmm_bsr_stream(a: BSR, b: torch.Tensor) -> torch.Tensor:
     """Container-level entry of K6: the (M, N) float32 result on b's
-    device.  On a CUDA tensor it launches ``bsr_block_spmm`` or raises; on
-    a CPU tensor it runs :func:`bsr_spmm_plain`."""
+    device.  On a CUDA tensor it launches ``bsr_block_spmm``
+    (:func:`stream_launch`) or raises; on a CPU tensor it runs
+    :func:`bsr_spmm_plain`."""
     if b.device.type == "cpu":
         return bsr_spmm_plain(a, b)
-    _check(a, b)
-    indptr, indices, order, planes = xla.cached_device(
-        a, "bsr_arrays", b.device,
-        lambda: (a.indptr, a.indices, block_row_order(a), term_planes(a)))
-    out = bsr_cuda.block_spmm(indptr, indices, order, planes, b.contiguous(),
-                              a.shape[0], a.block_size)
-    spmm_bsr_stream.launches += 1
-    return out
+    b = b.contiguous()
+    return stream_launch(a, b)(b)
 
 
 spmm_bsr_stream.launches = 0

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
 
@@ -88,12 +89,7 @@ def _checked(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
     """Refuse what the routine does not take, before any launch; (row
     tiles, dense tiles) of the index."""
     check_shape(tm)
-    if b.device.type != "cuda":
-        raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
-    if (b.dim() != 2 or b.dtype not in (torch.float32, torch.bfloat16)
-            or not b.is_contiguous()):
-        raise ValueError(f"{entry}: b must be a contiguous 2-D f32/bf16 "
-                         f"tensor, got {tuple(b.shape)} {b.dtype}")
+    cuda_build.check_b(entry, b)
     for name in INDEX:
         t = idx[name]
         want = torch.float32 if name in ("g_val", "d_a") else torch.int32
@@ -113,38 +109,10 @@ def _checked(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
     return num_tiles, n_dense
 
 
-def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
-           tk: int, split2: bool) -> torch.Tensor:
-    """Launch the owner routine on the current stream for the entry named
-    ``entry``: C (m, n) f32 from the tile index ``idx`` (:data:`INDEX`, on
-    b's device), at the 2-term tier when ``split2``.  Raises on what the
-    kernel does not take and on a refused launch."""
-    num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
-    lib = load()
-    k, n = b.shape
-    # the ctypes launch goes to the current device: make it b's
-    with torch.cuda.device(b.device):
-        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-        rc = lib.tile_owner_spmm(
-            *(idx[name].data_ptr() for name in INDEX), b.data_ptr(),
-            int(b.dtype == torch.bfloat16), out.data_ptr(), num_tiles, m, k,
-            n, tm, tk, n_dense, int(split2), _sm_count(b.device),
-            torch.cuda.current_stream(b.device).cuda_stream)
-    cuda_build.check_launch(lib, "chunk_spmm_error_string", entry, rc)
-    return out
-
-
-def launch_cluster(entry: str, idx: dict, sched: dict, b: torch.Tensor,
-                   m: int, tm: int, tk: int, split2: bool,
-                   issues: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the C-resident cluster kernel on the current stream for the
-    entry named ``entry``: as :func:`launch`, with the cluster schedule
-    ``sched`` (:data:`CLUSTER_INDEX`, on b's device; ``c_rt`` (clusters,
-    R), ``s_tile`` (steps, R)).  ``issues``, a one-element int32 tensor on
-    b's device or None (serving), counts the multicast B chunks.  Raises
-    on what the kernel does not take and on a refused launch (a schedule
-    of another R than the build's CLUSTER among them)."""
-    num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
+def _checked_cluster(entry: str, sched: dict, b: torch.Tensor,
+                     num_tiles: int, issues) -> tuple:
+    """Refuse a cluster schedule (and ``issues``) the cluster launch does
+    not take; (clusters, cluster)."""
     for name in CLUSTER_INDEX:
         t = sched[name]
         if (t.device != b.device or not t.is_contiguous()
@@ -163,20 +131,65 @@ def launch_cluster(entry: str, idx: dict, sched: dict, b: torch.Tensor,
             issues.device != b.device or issues.dtype != torch.int32
             or issues.numel() != 1):
         raise ValueError(f"{entry}: issues must be one int32 on {b.device}")
-    lib = load()
-    k, n = b.shape
-    with torch.cuda.device(b.device):
-        out = torch.empty((m, n), dtype=torch.float32, device=b.device)
-        rc = lib.cres_cluster_spmm(
-            *(idx[name].data_ptr() for name in INDEX),
-            *(sched[name].data_ptr() for name in CLUSTER_INDEX),
-            issues.data_ptr() if issues is not None else None, cluster,
-            clusters, b.data_ptr(), int(b.dtype == torch.bfloat16),
-            out.data_ptr(), num_tiles, m, k, n, tm, tk, n_dense, int(split2),
-            _sm_count(b.device),
-            torch.cuda.current_stream(b.device).cuda_stream)
-    cuda_build.check_launch(lib, "chunk_spmm_error_string", entry, rc)
-    return out
+    return clusters, cluster
+
+
+def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
+         split2: bool, sched: dict | None = None,
+         issues: torch.Tensor | None = None,
+         counter=None) -> cuda_build.Launch:
+    """The launch of the entry named ``entry``, bound to the tile index
+    ``idx`` (:data:`INDEX`, on b's device) for B of b's shape, dtype and
+    device: C (m, n) f32, at the 2-term tier when ``split2``;
+    ``counter.launches`` counts its launches.  Without ``sched`` the owner
+    routine (``tile_owner_spmm``); with it the C-resident cluster kernel
+    (``cres_cluster_spmm``) over the cluster schedule ``sched``
+    (:data:`CLUSTER_INDEX`, on b's device; ``c_rt`` (clusters, R),
+    ``s_tile`` (steps, R)), ``issues`` (a one-element int32 tensor on b's
+    device, or None when serving) counting its multicast B chunks.
+    Checks the index and schedule once, here, and raises on what the
+    kernel does not take; the C entry refuses a schedule of another R than
+    the build's CLUSTER at the launch."""
+    num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
+    k, n = (int(s) for s in b.shape)
+    keep = tuple(idx[name] for name in INDEX)
+    head = tuple(t.data_ptr() for t in keep)
+    if sched is not None:
+        clusters, cluster = _checked_cluster(entry, sched, b, num_tiles,
+                                             issues)
+        schedule = tuple(sched[name] for name in CLUSTER_INDEX)
+        keep += schedule + ((issues,) if issues is not None else ())
+        head += (*(t.data_ptr() for t in schedule),
+                 issues.data_ptr() if issues is not None else None, cluster,
+                 clusters)
+    name = "tile_owner_spmm" if sched is None else "cres_cluster_spmm"
+    b_bf16 = int(b.dtype == torch.bfloat16)
+    tail = (num_tiles, m, k, n, tm, tk, n_dense, int(split2),
+            _sm_count(b.device))
+
+    def args(b_ptr, out_ptr, stream):
+        return (*head, b_ptr, b_bf16, out_ptr, *tail, stream)
+
+    return cuda_build.Launch(sys.modules[__name__], name,
+                             "chunk_spmm_error_string", entry, b, m, args,
+                             keep, counter)
+
+
+def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
+           tk: int, split2: bool) -> torch.Tensor:
+    """Launch the owner routine on the current stream for the entry named
+    ``entry`` (:func:`bind`, then the launch), for a caller that launches
+    an index once."""
+    return bind(entry, idx, b, m, tm, tk, split2)(b)
+
+
+def launch_cluster(entry: str, idx: dict, sched: dict, b: torch.Tensor,
+                   m: int, tm: int, tk: int, split2: bool,
+                   issues: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the C-resident cluster kernel on the current stream for the
+    entry named ``entry`` (:func:`bind` with ``sched`` and ``issues``,
+    then the launch)."""
+    return bind(entry, idx, b, m, tm, tk, split2, sched, issues)(b)
 
 
 def blocks_per_sm(b_bf16: bool, wide: bool, split2: bool) -> int:

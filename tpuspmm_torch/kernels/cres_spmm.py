@@ -259,17 +259,11 @@ def b_traffic(plan: TilePlan, b: torch.Tensor, min_dense: float, sms: int,
                 * esize}}
 
 
-def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
-              schedule: str = "auto", *,
-              issues: torch.Tensor | None = None) -> torch.Tensor:
-    """Container- or plan-level entry of the C-resident kernels.
-
-    ``schedule``: "block8" (K5a, all tiers), "kloop" (K5b, "split" and
-    "split2" only, as in the JAX package), or "auto" (block8, as there).
-    On a CUDA tensor it launches the cluster kernel as ``cres_chunk_spmm``
-    / ``cres_kloop_chunk_spmm`` or raises; ``issues`` (one int32 on b's
-    device, or None) counts its multicast B chunks.  On a CPU tensor it
-    runs :func:`cres_spmm_plain`."""
+def _validated(plan: TilePlan, b: torch.Tensor, mode: str,
+               schedule: str) -> tuple:
+    """The entry's checks of a call: the tier, the schedule ("auto" is
+    block8), kloop's tiers, B against the plan and the card's C-resident
+    rule; (split2, schedule)."""
     split2 = check_mode(mode)
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got "
@@ -281,25 +275,60 @@ def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
         raise ValueError(
             f"schedule='kloop' supports mode 'split'/'split2', not "
             f"{mode!r}; use schedule='block8'")
-    plan = (a_or_plan if isinstance(a_or_plan, TilePlan)
-            else plan_from_container(a_or_plan))
     check_operand(plan, b)
     if not fits_card_out(plan.tile_m, b.device):
         raise ValueError(
             f"a ({plan.tile_m} x {COLUMN_TILE}) f32 accumulator exceeds the "
             "shared memory of a block; use spmm_tiles")
+    return split2, schedule
+
+
+def cres_launch(plan: TilePlan, b: torch.Tensor, mode: str = "split",
+                schedule: str = "auto", *,
+                issues: torch.Tensor | None = None):
+    """:func:`spmm_cres`' launch on the card for B of b's shape, dtype and
+    device (contiguous): the cluster kernel bound to the plan's tile index
+    and cluster schedule as ``cres_chunk_spmm`` (block8) or
+    ``cres_kloop_chunk_spmm`` (kloop) (``chunk_cuda.bind``), once, and
+    cached on the plan; ``launch(b)`` is C.  With ``issues`` (one int32
+    on b's device, counting its multicast B chunks) the binding is built
+    for that counter and not cached."""
+    split2, schedule = _validated(plan, b, mode, schedule)
+    entry, counter = (("cres_chunk_spmm", spmm_cres) if schedule == "block8"
+                      else ("cres_kloop_chunk_spmm", spmm_cres_kloop))
+
+    def build():
+        min_dense = dense_min(plan.tile_k, split2)
+        return chunk_cuda.bind(
+            entry, index_arrays(plan, b.device, min_dense), b,
+            plan.shape[0], plan.tile_m, plan.tile_k, split2,
+            sched=schedule_arrays(plan, b.device, min_dense), issues=issues,
+            counter=counter)
+
+    if issues is not None:
+        return build()
+    return plan.derived(("launch", entry, int(b.shape[1]), b.dtype,
+                         b.device, split2), build)
+
+
+def spmm_cres(a_or_plan, b: torch.Tensor, mode: str = "split",
+              schedule: str = "auto", *,
+              issues: torch.Tensor | None = None) -> torch.Tensor:
+    """Container- or plan-level entry of the C-resident kernels.
+
+    ``schedule``: "block8" (K5a, all tiers), "kloop" (K5b, "split" and
+    "split2" only, as in the JAX package), or "auto" (block8, as there).
+    On a CUDA tensor it launches the cluster kernel as ``cres_chunk_spmm``
+    / ``cres_kloop_chunk_spmm`` (:func:`cres_launch`) or raises;
+    ``issues`` (one int32 on b's device, or None) counts its multicast B
+    chunks.  On a CPU tensor it runs :func:`cres_spmm_plain`."""
+    plan = (a_or_plan if isinstance(a_or_plan, TilePlan)
+            else plan_from_container(a_or_plan))
+    _, schedule = _validated(plan, b, mode, schedule)
     if b.device.type == "cpu":
         return cres_spmm_plain(plan, b, mode, schedule)
-    entry = ("cres_chunk_spmm" if schedule == "block8"
-             else "cres_kloop_chunk_spmm")
-    min_dense = dense_min(plan.tile_k, split2)
-    out = chunk_cuda.launch_cluster(
-        entry, index_arrays(plan, b.device, min_dense),
-        schedule_arrays(plan, b.device, min_dense), b.contiguous(),
-        plan.shape[0], plan.tile_m, plan.tile_k, split2, issues)
-    counter = spmm_cres if schedule == "block8" else spmm_cres_kloop
-    counter.launches += 1
-    return out
+    b = b.contiguous()
+    return cres_launch(plan, b, mode, schedule, issues=issues)(b)
 
 
 def spmm_cres_kloop(a_or_plan, b: torch.Tensor, mode: str = "split", *,

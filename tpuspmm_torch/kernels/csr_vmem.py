@@ -35,15 +35,15 @@ runs.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from tpuspmm_torch.formats.tiles import TilePlan, plan_from_container
-from tpuspmm_torch.kernels import chunk_cuda
 from tpuspmm_torch.kernels.common import round_up
 from tpuspmm_torch.kernels.tile_spmm import (check_mode, check_operand,
-                                             dense_min, index_arrays,
-                                             walk_plain)
+                                             owner_launch, walk_plain)
 
 # the column tile the staging and C-resident rules plan with: the first
 # port's, and no longer the routine's (chunk_cuda.COLUMN_TILES), so that
@@ -55,9 +55,10 @@ COLUMN_TILE = 64
 H100_SMEM_OPTIN = 232448
 
 
+@functools.lru_cache(maxsize=None)
 def smem_optin(device) -> int:
     """Opt-in shared memory per block of ``device`` (the H100's for a CPU
-    device)."""
+    device); read once per device."""
     device = torch.device(device)
     if device.type == "cpu":
         return H100_SMEM_OPTIN
@@ -137,30 +138,43 @@ def staged_spmm_plain(plan: TilePlan, b: torch.Tensor, num_slabs: int,
     return out[:plan.shape[0]]
 
 
-def spmm_staged(a_or_plan, b: torch.Tensor,
-                mode: str = "split") -> torch.Tensor:
-    """Container- or plan-level entry of K4: the staging rule on b's
-    device picks (num_slabs, slab_k); on a CUDA tensor it launches
-    ``staged_chunk_spmm`` or raises, on a CPU tensor it runs
-    :func:`staged_spmm_plain`."""
-    split2 = check_mode(mode)
-    plan = (a_or_plan if isinstance(a_or_plan, TilePlan)
-            else plan_from_container(a_or_plan))
-    check_operand(plan, b)
-    geom = slab_geometry(plan, b.device)
+def _slab_rule(plan: TilePlan, device) -> tuple:
+    """The staging rule's (num_slabs, slab_k) on ``device``; raises where
+    not one stripe fits."""
+    geom = slab_geometry(plan, device)
     if geom is None:
         raise ValueError(
             f"not even one ({plan.tile_k} x {COLUMN_TILE}) B stripe fits "
             "beside the accumulator in shared memory; use spmm_tiles")
-    num_slabs, slab_k = geom
+    return geom
+
+
+def staged_launch(plan: TilePlan, b: torch.Tensor, mode: str = "split"):
+    """:func:`spmm_staged`'s launch on the card for B of b's shape, dtype
+    and device (contiguous): the staging rule checked once, the owner
+    routine bound as ``staged_chunk_spmm`` (``tile_spmm.owner_launch``);
+    ``launch(b)`` is C."""
+    split2 = check_mode(mode)
+    check_operand(plan, b)
+    _slab_rule(plan, b.device)
+    return owner_launch(plan, b, "staged_chunk_spmm", split2, spmm_staged)
+
+
+def spmm_staged(a_or_plan, b: torch.Tensor,
+                mode: str = "split") -> torch.Tensor:
+    """Container- or plan-level entry of K4: the staging rule on b's
+    device picks (num_slabs, slab_k); on a CUDA tensor it launches
+    ``staged_chunk_spmm`` (:func:`staged_launch`) or raises, on a CPU
+    tensor it runs :func:`staged_spmm_plain`."""
+    check_mode(mode)
+    plan = (a_or_plan if isinstance(a_or_plan, TilePlan)
+            else plan_from_container(a_or_plan))
+    check_operand(plan, b)
+    num_slabs, slab_k = _slab_rule(plan, b.device)
     if b.device.type == "cpu":
         return staged_spmm_plain(plan, b, num_slabs, slab_k, mode)
-    out = chunk_cuda.launch(
-        "staged_chunk_spmm",
-        index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
-        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
-    spmm_staged.launches += 1
-    return out
+    b = b.contiguous()
+    return staged_launch(plan, b, mode)(b)
 
 
 spmm_staged.launches = 0

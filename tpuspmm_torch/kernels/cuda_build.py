@@ -11,6 +11,11 @@ interface.  ptxas reports each kernel's registers, shared memory and spills
 (``CudaLibrary.build_log``).
 Nothing here runs when the module is imported: the CPU tests import it
 without a CUDA toolkit.
+
+Each kernel's launch is bound once per plan, B width, B dtype and device
+(:class:`Launch`): the plan's checks and arguments are taken then, and a
+call checks B and launches, as a ``jax.jit``-ed ``pallas_call`` is traced
+once per signature and replayed.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import os
 import re
 import subprocess
 from typing import Callable
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -123,3 +130,79 @@ def check_launch(lib, error_string: str, entry: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, error_string)(rc).decode()
         raise RuntimeError(f"{entry} launch failed: {msg}")
+
+
+_B_TYPES = (torch.float32, torch.bfloat16)
+
+
+def check_b(entry: str, b) -> None:
+    """Refuse a B no kernel takes: not on a CUDA device, or not a
+    contiguous 2-D f32 / bf16 tensor."""
+    if b.device.type != "cuda":
+        raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
+    if b.dim() != 2 or b.dtype not in _B_TYPES or not b.is_contiguous():
+        raise ValueError(f"{entry}: b must be a contiguous 2-D f32/bf16 "
+                         f"tensor, got {tuple(b.shape)} {b.dtype}")
+
+
+class Launch:
+    """One C entry point's launch, bound to one plan, B width, B dtype and
+    device: the plan's checks, its pointers and scalars are taken once,
+    when the binding is built (``bind`` in each ``*_cuda`` module, with
+    an exemplar B); a call checks only B and launches.
+
+    A call refuses a B that is not CUDA, f32 / bf16, 2-D and contiguous,
+    or not of the bound shape, dtype and device; allocates C (rows, n)
+    f32 with ``torch.empty``; reads the current stream; makes one ctypes
+    call with ``args(b_ptr, out_ptr, stream)``; raises on a refused
+    launch; and adds one to ``counter.launches`` (where a counter is
+    given).  The library is looked up on ``module`` at each call (its
+    ``load``), so a sweep that swaps the library swaps it here too;
+    ``keep`` holds every tensor whose pointer the arguments carry."""
+
+    __slots__ = ("module", "name", "error_string", "entry", "device",
+                 "index", "b_shape", "b_dtype", "out_shape", "args", "keep",
+                 "counter")
+
+    def __init__(self, module, name: str, error_string: str, entry: str, b,
+                 rows: int, args: Callable, keep: tuple, counter=None):
+        self.module, self.name = module, name
+        self.error_string, self.entry = error_string, entry
+        self.device, self.index = b.device, b.device.index
+        self.b_shape, self.b_dtype = tuple(b.shape), b.dtype
+        self.out_shape = (rows, int(b.shape[1]))
+        self.args, self.keep, self.counter = args, keep, counter
+
+    def refuse(self, b) -> None:
+        """Raise for a B this launch does not take (the fast check in
+        ``__call__`` failed)."""
+        check_b(self.entry, b)
+        if int(b.shape[0]) != self.b_shape[0]:
+            raise ValueError(f"b must be (K={self.b_shape[0]}, N), got "
+                             f"{tuple(b.shape)}")
+        raise ValueError(
+            f"{self.entry}: bound for a {self.b_shape} {self.b_dtype} B on "
+            f"{self.device}, got {tuple(b.shape)} {b.dtype} on {b.device}")
+
+    def __call__(self, b):
+        if (b.device != self.device or b.dtype != self.b_dtype
+                or b.shape != self.b_shape or not b.is_contiguous()):
+            self.refuse(b)
+        lib = self.module.load()
+        # the ctypes launch goes to the current device: make it b's
+        if torch.cuda.current_device() == self.index:
+            out, rc = self._launch(lib, b)
+        else:
+            with torch.cuda.device(self.device):
+                out, rc = self._launch(lib, b)
+        check_launch(lib, self.error_string, self.entry, rc)
+        if self.counter is not None:
+            self.counter.launches += 1
+        return out
+
+    def _launch(self, lib, b) -> tuple:
+        out = torch.empty(self.out_shape, dtype=torch.float32,
+                          device=self.device)
+        stream = torch._C._cuda_getCurrentRawStream(self.index)
+        return out, getattr(lib, self.name)(
+            *self.args(b.data_ptr(), out.data_ptr(), stream))

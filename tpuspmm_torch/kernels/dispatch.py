@@ -28,21 +28,27 @@ admission rules decide which routes are candidates:
 Under a row with a serve-time model (every key of SERVE_TERMS, as the
 H100 row has) each admitted route of steps 3-5 is priced
 (:func:`route_costs`) and the least modelled serve time serves, a tie to
-JAX's order; the decision and its plan are cached on the container per
-(B width, B dtype, device, config, row), so a repeat serve prices
-nothing.  A row without those keys (each of JAX's per-chip rows) routes
-in JAX's fixed order: the first admitted of steps 3-6, panel or pair by
-the lower geometry ``cost_us``.
+JAX's order.  A row without those keys (each of JAX's per-chip rows)
+routes in JAX's fixed order: the first admitted of steps 3-6, panel or
+pair by the lower geometry ``cost_us``.
+
+The decision, what it serves from and the route's launch are one handle
+(:class:`Served`), built once per (B width, B dtype, device, config, row)
+and cached on the container, as the JAX package's ``jax.jit`` traces a
+``pallas_call`` once per signature: a repeat serve checks B and
+launches, and resolves, prices and checks the plan no more.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import functools
+import warnings
 
 import numpy as np
 import torch
 
-from tpuspmm_torch.engine.report import hbm_gbps
+from tpuspmm_torch.config import default_config
+from tpuspmm_torch.engine.report import HBM_GBPS
 from tpuspmm_torch.formats.base import container_cache
 from tpuspmm_torch.kernels.common import round_up
 
@@ -103,18 +109,21 @@ H100_SMS = 132
 #   panel_hbm_gbps is a cost term (JAX's name), not the card's memory
 #   rate: a roofline reads engine/report.hbm_gbps instead.
 # - serve_* (the serve-time model, SERVE_TERMS): tools/fit_routing.py from
-#   the same file's 168 "routes" records: every route JAX's rules admit
-#   on 84 operands (the density set, the pruned weights, uniform 16384²,
-#   the corpus at w256 / w512, medium_4096 and large_15120 at their
-#   on-disk B), f32 and bf16 B, each pinned, gated and timed in five
-#   interleaved rounds; non-negative least squares in relative error, the
-#   device terms against the graph-replayed device time, the host term
-#   against the serve time of host-bound serves (panel's and pair's
-#   together).  The fit zeroes some terms (panel's entries and B bytes,
-#   the tile family's gathered nonzeros): the tensor-core products, the
-#   heaviest group and the heaviest warp carry those routes' time.
-#   Geometric-mean regret over the 136 records with two or more routes:
-#   1.027 priced, 1.663 in JAX's order under this row (PERF.md).
+#   the same file's 170 "routes" records: every route JAX's rules admit
+#   on 85 operands (the density set, the pruned weights, uniform 16384²,
+#   the corpus at w256 / w512, medium_4096, large_15120 and medium_2048
+#   at their on-disk B), f32 and bf16 B, each pinned, gated and timed in
+#   five interleaved rounds, served from the served handle (`served`);
+#   non-negative least squares in relative error, the device terms
+#   against the graph-replayed device time (panel's and pair's together:
+#   one kernel, one set of coefficients), one host term for every family
+#   (one host path: the handle's launch) against the serve time of
+#   host-bound serves.  The fit zeroes some terms (the strip routine's
+#   entries, the tile family's gathered nonzeros): the tensor-core
+#   products, the heaviest group and the heaviest warp carry those
+#   routes' time.  Geometric-mean regret over the 138 records with two or
+#   more routes: 1.046 priced, 2.469 in JAX's order under this row
+#   (PERF.md).
 # The row was measured on the SXM part; other H100s read it too.  The
 # "cpu" row is the same row, so the CPU tests pick the route the card
 # picks.
@@ -125,34 +134,44 @@ H100_FIT = {"densify_max_bytes": 268435456,
             "panel_step_us": 0.022, "panel_strip_us": 0.01041,
             "panel_hbm_gbps": 221.4,
             "panel_gather_gbps": 1238.5,
-            "serve_densify_us": 70.4045,
-            "serve_densify_f32_us_per_gmac": 43.2104,
-            "serve_densify_bf16_us_per_gmac": 44.8012,
-            "serve_panel_us": 99.5065, "serve_panel_model": 0.122837,
+            "serve_densify_us": 42.6649,
+            "serve_densify_f32_us_per_gmac": 43.0719,
+            "serve_densify_bf16_us_per_gmac": 44.6969,
+            "serve_panel_us": 42.6649, "serve_panel_model": 0.0124357,
             "serve_panel_entry_us_per_mcol": 0.0,
-            "serve_panel_b_us_per_mb": 0.0,
-            "serve_panel_tc_us_per_gflop": 5.06231,
-            "serve_panel_group_us_per_step": 1.74618,
-            "serve_pair_us": 99.5065, "serve_pair_model": 0.0,
-            "serve_pair_entry_us_per_mcol": 27.1366,
-            "serve_pair_b_us_per_mb": 0.0,
-            "serve_pair_tc_us_per_gflop": 2.70294,
-            "serve_pair_group_us_per_step": 1.71861,
-            "serve_tile_us": 100.924,
+            "serve_panel_b_us_per_mb": 0.0430545,
+            "serve_panel_tc_us_per_gflop": 4.39887,
+            "serve_panel_group_us_per_step": 1.55222,
+            "serve_pair_us": 42.6649, "serve_pair_model": 0.0124357,
+            "serve_pair_entry_us_per_mcol": 0.0,
+            "serve_pair_b_us_per_mb": 0.0430545,
+            "serve_pair_tc_us_per_gflop": 4.39887,
+            "serve_pair_group_us_per_step": 1.55222,
+            "serve_tile_us": 42.6649,
             "serve_tile_dense_f32_us_per_gmac": 0.0,
-            "serve_tile_dense_bf16_us_per_gmac": 3.85225,
+            "serve_tile_dense_bf16_us_per_gmac": 3.80731,
             "serve_tile_gather_us_per_mcol": 0.0,
-            "serve_tile_straggler_us_per_mcol": 1815.72,
-            "serve_tile_b_us_per_mb": 4.39206}
+            "serve_tile_straggler_us_per_mcol": 1815.59,
+            "serve_tile_b_us_per_mb": 4.39559}
+
+
+# unrecorded card names already warned of (one warning a name a process)
+_UNRECORDED = set()
 
 
 def thresholds(device="cpu") -> dict:
     """Routing and cost constants for ``device``: the H100 row, for a CPU
-    device and for a CUDA device whose card is on record
-    (``engine/report.HBM_GBPS``).  Another card raises."""
+    device and for any CUDA device.  A card whose name is not on record
+    (``engine/report.HBM_GBPS``) is served with the H100 row too, as the
+    JAX package serves an unknown chip with a known row, with one warning
+    a card name."""
     device = torch.device(device)
     if device.type == "cuda":
-        hbm_gbps(torch.cuda.get_device_name(device))  # an unknown card raises
+        name = torch.cuda.get_device_name(device)
+        if name not in HBM_GBPS and name not in _UNRECORDED:
+            _UNRECORDED.add(name)
+            warnings.warn(f"no routing row on record for {name!r}: routing "
+                          "with the H100 row (H100_FIT)", stacklevel=2)
     elif device.type != "cpu":
         raise ValueError(f"no cost constants for device {device}")
     return dict(H100_FIT)
@@ -160,10 +179,9 @@ def thresholds(device="cpu") -> dict:
 
 def route(a, b: torch.Tensor, config=None) -> str:
     """The path ``spmm_pallas`` serves (a, b) by: "exact", "bsr_stream",
-    "densify", "panel", "pair", "staged", "cres", "tile" or "xla".
-    Resolves (and caches) the packed BSR, the geometries and the plan it
-    needs."""
-    return _resolve(a, b, config)[0]
+    "densify", "panel", "pair", "staged", "cres", "tile" or "xla" (the
+    route of its handle, :func:`served`, built here if need be)."""
+    return served(a, b, config).route
 
 
 def priced(th: dict) -> bool:
@@ -324,9 +342,7 @@ def route_features(a, b: torch.Tensor, config=None) -> dict:
       ``cres_spmm.b_traffic``, the cluster launch's for "cres", the owner
       routine's otherwise);
     - each route also a fixed term (1), its host work a serve.
-    Every call recomputes; ``_resolve`` caches its decision."""
-    from tpuspmm_torch.config import default_config
-
+    Every call recomputes; the served handle caches its decision."""
     config = config or default_config()
     th = thresholds(b.device)
     m, k = a.shape
@@ -391,37 +407,106 @@ def cheapest(costs: dict) -> str:
     return min(costs, key=costs.get) if costs else "xla"
 
 
+class Served:
+    """The handle ``spmm_pallas`` serves an operand from, for one B width,
+    B dtype and device under one config and row: the route, what the
+    route serves from (``source``: the BSR K6 runs on, a panel, pair or
+    tile plan, or None), the row it was resolved under (``row``) and
+    ``launch(b)``, one serve.  On the card ``launch`` is the route's
+    bound kernel launch (its plan checked once, when bound: ``bind`` in
+    ``kernels/*_cuda.py``), the dense product on the cached dense A, or
+    the plain-torch path (exact, xla); on the CPU it is the route's entry
+    point, which runs the plain version."""
+
+    __slots__ = ("route", "source", "row", "launch")
+
+    def __init__(self, route: str, source, row: dict, launch):
+        self.route, self.source, self.row = route, source, row
+        self.launch = launch
+
+
+def served(a, b: torch.Tensor, config=None) -> Served:
+    """The handle ``spmm_pallas`` serves (a, b) from: built once per B
+    width, B dtype, device and config (its fields' values, so a field
+    changed in place builds another) and cached on the container; a row
+    other than the one it was built under (a refit, a patched row) builds
+    it again.  Building it runs everything the route needs (the
+    compensated check, ``stream_operand``, the row, the pricing or JAX's
+    order, the plans and their device arrays, the kernel's binding); a
+    repeat serve runs none of it."""
+    config = config or default_config()
+    key = ("served", int(b.shape[1]), b.dtype, b.device,
+           tuple(vars(config).values()))
+    cache = container_cache(a)
+    handle = cache.get(key)
+    if handle is None or handle.row != H100_FIT:
+        row = dict(H100_FIT)
+        kind, source = _decide(a, b, config)
+        handle = cache[key] = Served(kind, source, row,
+                                     _launch(kind, a, source, b, config))
+    return handle
+
+
 def _resolve(a, b: torch.Tensor, config=None):
+    """(route, what that route serves from) of the handle (:func:`served`)."""
+    handle = served(a, b, config)
+    return handle.route, handle.source
+
+
+def _decide(a, b: torch.Tensor, config):
     """(route, what that route serves from: the BSR K6 runs on, a panel or
     pair plan, a tile plan, or None)."""
-    from tpuspmm_torch.config import default_config
     from tpuspmm_torch.kernels import bsr_spmm
     from tpuspmm_torch.ops import exact
 
-    config = config or default_config()
     if exact.needs_compensated(a) and exact.exact_admissible(a):
         return "exact", None
     if a.format_name == "bsr":
-        served = bsr_spmm.stream_operand(a)
-        if served is not None:
-            return "bsr_stream", served
+        source = bsr_spmm.stream_operand(a)
+        if source is not None:
+            return "bsr_stream", source
 
     th = thresholds(b.device)
     if not priced(th):
         return _jax_order(a, b, config, th)
-    key = ("route", int(b.shape[1]), b.dtype, str(b.device),
-           dataclasses.astuple(config), tuple(sorted(th.items())))
-    cache = container_cache(a)
-    if key not in cache:
-        kind = cheapest(route_costs(a, b, config))
-        if kind in ("panel", "pair"):
-            geom = _geometries(a, b, config, th)[kind == "pair"]
-            cache[key] = kind, _strip_plan(kind, a, geom, b)
-        elif kind in TILE_FAMILY:
-            cache[key] = kind, _tile_member(a, b, config, th)[1]
-        else:
-            cache[key] = kind, None
-    return cache[key]
+    kind = cheapest(route_costs(a, b, config))
+    if kind in ("panel", "pair"):
+        geom = _geometries(a, b, config, th)[kind == "pair"]
+        return kind, _strip_plan(kind, a, geom, b)
+    if kind in TILE_FAMILY:
+        return kind, _tile_member(a, b, config, th)[1]
+    return kind, None
+
+
+def _launch(kind: str, a, source, b: torch.Tensor, config):
+    """One serve of route ``kind`` from ``source`` for B of b's width,
+    dtype and device: ``launch(b)`` is C."""
+    from tpuspmm_torch.kernels import (bsr_spmm, cres_spmm, csr_vmem,
+                                       pair_spmm, panel_spmm, tile_spmm)
+    from tpuspmm_torch.ops import exact, xla
+
+    if kind == "exact":
+        return functools.partial(exact.spmm_exact, a)
+    if kind == "xla":
+        return functools.partial(xla.spmm_xla, a)
+    if kind == "densify":
+        return functools.partial(xla.dense_product,
+                                 xla.dense_operand(a, b.device))
+    mode = config.precision_mode
+    # panel and pair serve at "highest" whatever the config says
+    entry, bound, kwargs = {
+        "bsr_stream": (bsr_spmm.spmm_bsr_stream, bsr_spmm.stream_launch, {}),
+        "panel": (panel_spmm.spmm_panel, panel_spmm.panel_launch, {}),
+        "pair": (pair_spmm.spmm_pair, pair_spmm.pair_launch, {}),
+        "staged": (csr_vmem.spmm_staged, csr_vmem.staged_launch,
+                   {"mode": mode}),
+        "cres": (cres_spmm.spmm_cres, cres_spmm.cres_launch, {"mode": mode}),
+        "tile": (tile_spmm.spmm_tiles, tile_spmm.tiles_launch,
+                 {"mode": mode}),
+    }[kind]
+    if b.device.type == "cpu":
+        return functools.partial(entry, source, **kwargs)
+    return bound(source, b, **kwargs)
 
 
 def _jax_order(a, b: torch.Tensor, config, th: dict):
@@ -445,30 +530,7 @@ def _jax_order(a, b: torch.Tensor, config, th: dict):
 
 
 def spmm_pallas(a, b: torch.Tensor, config=None) -> torch.Tensor:
-    """Best-strategy SpMM (the "pallas" / "auto" path) on b's device."""
-    from tpuspmm_torch.config import default_config
-    from tpuspmm_torch.kernels import (bsr_spmm, cres_spmm, csr_vmem,
-                                       pair_spmm, panel_spmm, tile_spmm)
-    from tpuspmm_torch.ops import exact, xla
-
-    config = config or default_config()
+    """Best-strategy SpMM (the "pallas" / "auto" path) on b's device,
+    served from the operand's handle (:func:`served`)."""
     b = b.contiguous()
-    kind, plan = _resolve(a, b, config)
-    mode = config.precision_mode
-    if kind == "exact":
-        return exact.spmm_exact(a, b)
-    if kind == "bsr_stream":
-        return bsr_spmm.spmm_bsr_stream(plan, b)
-    if kind == "densify":
-        return xla.spmm_densify_cached(a, b)
-    if kind == "panel":
-        return panel_spmm.spmm_panel(plan, b)
-    if kind == "pair":
-        return pair_spmm.spmm_pair(plan, b)
-    if kind == "staged":
-        return csr_vmem.spmm_staged(plan, b, mode=mode)
-    if kind == "cres":
-        return cres_spmm.spmm_cres(plan, b, mode=mode)
-    if kind == "tile":
-        return tile_spmm.spmm_tiles(plan, b, mode=mode)
-    return xla.spmm_xla(a, b)
+    return served(a, b, config).launch(b)

@@ -53,6 +53,7 @@ from tpuspmm_torch.kernels.panel_spmm import (
     plan_tensor,
     plan_values_bf16_exact,
     slab_rows,
+    strip_launch,
     strip_owner_index,
     values_bf16_exact,
 )
@@ -555,17 +556,27 @@ def pair_spmm_plain(plan: PairPlan, b: torch.Tensor,
     return finish_panel_output(out, plan, arrs, n)
 
 
+def pair_launch(plan: PairPlan, b: torch.Tensor, mode: str = "highest"):
+    """:func:`spmm_pair`'s launch on the card for B of b's shape, dtype
+    and device (contiguous): ``launch(b)`` is C
+    (``panel_spmm.strip_launch``)."""
+    split2 = normalize_panel_mode(mode) == "split"
+    check_operand(plan, b)
+    return strip_launch(plan, b, "pair_strip_spmm", split2, spmm_pair)
+
+
 def spmm_pair(a_or_plan, b: torch.Tensor, mode: str = "highest",
               tm: int = 8, tk: int = 128,
               chunk_strips: int | None = None) -> torch.Tensor:
     """Container- or plan-level entry of the pair kernel.
 
     On a CUDA tensor it launches the strip-owner kernel (``csrc/
-    strip_spmm.cu``, ``pair_strip_spmm``) or raises; on a CPU tensor it
-    runs :func:`pair_spmm_plain`.  Same precision tiers as spmm_panel.  A
-    container resolves its geometry for b's device (single supertile);
-    ``chunk_strips`` pins CH."""
-    split2 = normalize_panel_mode(mode) == "split"  # before planning
+    strip_spmm.cu``, ``pair_strip_spmm``; its launch bound once per plan,
+    B width, B dtype and device: :func:`pair_launch`) or raises; on a CPU
+    tensor it runs :func:`pair_spmm_plain`.  Same precision tiers as
+    spmm_panel.  A container resolves its geometry for b's device (single
+    supertile); ``chunk_strips`` pins CH."""
+    normalize_panel_mode(mode)  # before planning
     n = int(b.shape[1])
     if isinstance(a_or_plan, PairPlan):
         plan = a_or_plan
@@ -585,13 +596,7 @@ def spmm_pair(a_or_plan, b: torch.Tensor, mode: str = "highest",
     check_operand(plan, b)
     if b.device.type == "cpu":
         return pair_spmm_plain(plan, b, mode)
-    from tpuspmm_torch.kernels import strip_cuda
-
-    arrs = plan.device_arrays(b.device)
-    out = strip_cuda.strip_spmm("pair_strip_spmm", arrs, b,
-                                plan.n_out_strips, plan.tm, plan.tk, split2)
-    spmm_pair.launches += 1
-    return finish_panel_output(out, plan, arrs, n)
+    return pair_launch(plan, b, mode)(b)
 
 
 spmm_pair.launches = 0

@@ -993,17 +993,46 @@ def check_operand(plan, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)}")
 
 
+def strip_launch(plan, b: torch.Tensor, entry: str, split2: bool, counter):
+    """The strip routine's launch as ``entry`` (K1 or K2) for a panel or
+    pair plan and B of b's shape, dtype and device, with the epilogue
+    (:func:`finish_panel_output`): ``strip_cuda.bind`` over the plan's
+    device arrays, once, cached on the plan; ``counter`` is the entry
+    whose ``launches`` it counts."""
+    cache = plan.__dict__.setdefault("_launches", {})
+    key = (entry, int(b.shape[1]), b.dtype, b.device, split2)
+    if key not in cache:
+        from tpuspmm_torch.kernels import strip_cuda
+
+        arrs = plan.device_arrays(b.device)
+        bound = strip_cuda.bind(entry, arrs, b, plan.n_out_strips, plan.tm,
+                                plan.tk, split2, counter)
+        n = int(b.shape[1])
+        cache[key] = lambda bb: finish_panel_output(bound(bb), plan, arrs, n)
+    return cache[key]
+
+
+def panel_launch(plan: PanelPlan, b: torch.Tensor, mode: str = "highest"):
+    """:func:`spmm_panel`'s launch on the card for B of b's shape, dtype
+    and device (contiguous): ``launch(b)`` is C (:func:`strip_launch`)."""
+    split2 = normalize_panel_mode(mode) == "split"
+    check_operand(plan, b)
+    return strip_launch(plan, b, "panel_strip_spmm", split2, spmm_panel)
+
+
 def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
                tm: int | None = None, tk: int | None = None,
                panel_strips: int | None = None) -> torch.Tensor:
     """Container- or plan-level entry of the panel kernel.
 
     On a CUDA tensor it launches the strip-owner kernel (``csrc/
-    strip_spmm.cu``, ``panel_strip_spmm``, GROUP_ROWS rows a block) or
-    raises; on a CPU tensor it runs :func:`panel_spmm_plain`.  ``mode``:
-    "highest" (gate-exact) or "split2" (verified-only).  A container
-    resolves its geometry for b's device (single supertile)."""
-    split2 = normalize_panel_mode(mode) == "split"  # before planning
+    strip_spmm.cu``, ``panel_strip_spmm``, GROUP_ROWS rows a block; its
+    launch bound once per plan, B width, B dtype and device:
+    :func:`panel_launch`) or raises; on a CPU tensor it runs
+    :func:`panel_spmm_plain`.  ``mode``: "highest" (gate-exact) or
+    "split2" (verified-only).  A container resolves its geometry for b's
+    device (single supertile)."""
+    normalize_panel_mode(mode)  # before planning
     n = int(b.shape[1])
     if isinstance(a_or_plan, PanelPlan):
         plan = a_or_plan
@@ -1020,13 +1049,7 @@ def spmm_panel(a_or_plan, b: torch.Tensor, mode: str = "highest",
     check_operand(plan, b)
     if b.device.type == "cpu":
         return panel_spmm_plain(plan, b, mode)
-    from tpuspmm_torch.kernels import strip_cuda
-
-    arrs = plan.device_arrays(b.device)
-    out = strip_cuda.strip_spmm("panel_strip_spmm", arrs, b,
-                                plan.n_out_strips, plan.tm, plan.tk, split2)
-    spmm_panel.launches += 1
-    return finish_panel_output(out, plan, arrs, n)
+    return panel_launch(plan, b, mode)(b)
 
 
 spmm_panel.launches = 0

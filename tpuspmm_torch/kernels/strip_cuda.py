@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
 
@@ -52,22 +53,14 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
-               tm: int, tk: int, split2: bool = False) -> torch.Tensor:
-    """Launch ``entry`` on the current stream: C (n_out_strips·tm, n) f32
-    in the trash-free slab layout from the plan tensors in ``arrs``
-    (a_dense, and group_ptr, group_kt, group_slot of the plan's group index
-    over ``GROUP_ROWS // tm`` output strips with group_order, the groups by
-    entries, most first, on b's device), at the 2-term tier when
-    ``split2``.  Checks device, dtype, shape, contiguity and alignment, and
-    raises on what the kernel does not take or on a refused launch."""
+def _checked(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
+             tm: int, tk: int) -> int:
+    """Refuse what the kernel does not take, before any launch: B (as
+    ``cuda_build.check_b``) and the plan tensors' device, dtype, shape,
+    contiguity and alignment; the group count."""
+    cuda_build.check_b(entry, b)
     a = arrs["a_dense"]
     idx = [arrs[k] for k in _INDEX]
-    if b.device.type != "cuda":
-        raise ValueError(f"{entry}: b must be a CUDA tensor, got {b.device}")
-    if b.dim() != 2 or b.dtype not in _TYPES or not b.is_contiguous():
-        raise ValueError(f"{entry}: b must be a contiguous 2-D f32/bf16 "
-                         f"tensor, got {tuple(b.shape)} {b.dtype}")
     if a.dtype not in _TYPES or a.dim() != 2 or a.shape[1] != tk:
         raise ValueError(f"{entry}: a_dense must be (rows, {tk}) f32/bf16")
     for t in (a, *idx):
@@ -87,17 +80,39 @@ def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
                          f"{n_out_strips} output strips")
     if a.data_ptr() % 16:
         raise ValueError(f"{entry}: a_dense must be 16-byte aligned")
-    k, n = b.shape
-    lib = load()
-    # the ctypes launch goes to the current device: make it b's
-    with torch.cuda.device(b.device):
-        out = torch.empty((n_out_strips * tm, n), dtype=torch.float32,
-                          device=b.device)
-        rc = getattr(lib, entry)(
-            a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
-            int(b.dtype == torch.bfloat16), *(t.data_ptr() for t in idx),
-            out.data_ptr(), n_groups, n_out_strips * tm, tm, tk, k, n,
-            _sm_count(b.device), int(split2),
-            torch.cuda.current_stream(b.device).cuda_stream)
-    cuda_build.check_launch(lib, "strip_spmm_error_string", entry, rc)
-    return out
+    return n_groups
+
+
+def bind(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
+         tm: int, tk: int, split2: bool = False,
+         counter=None) -> cuda_build.Launch:
+    """``entry``'s launch bound to the plan tensors in ``arrs`` (a_dense,
+    and group_ptr, group_kt, group_slot of the plan's group index over
+    ``GROUP_ROWS // tm`` output strips with group_order, the groups by
+    entries, most first, on b's device) for B of b's shape, dtype and
+    device: C (n_out_strips·tm, n) f32 in the trash-free slab layout, at
+    the 2-term tier when ``split2``; ``counter.launches`` counts its
+    launches.  Checks the plan once, here, and raises on what the kernel
+    does not take."""
+    n_groups = _checked(entry, arrs, b, n_out_strips, tm, tk)
+    a = arrs["a_dense"]
+    idx = tuple(arrs[k] for k in _INDEX)
+    k, n = (int(s) for s in b.shape)
+    head = (a.data_ptr(), int(a.dtype == torch.bfloat16))
+    mid = (int(b.dtype == torch.bfloat16), *(t.data_ptr() for t in idx))
+    tail = (n_groups, n_out_strips * tm, tm, tk, k, n, _sm_count(b.device),
+            int(split2))
+
+    def args(b_ptr, out_ptr, stream):
+        return (*head, b_ptr, *mid, out_ptr, *tail, stream)
+
+    return cuda_build.Launch(sys.modules[__name__], entry,
+                             "strip_spmm_error_string", entry, b,
+                             n_out_strips * tm, args, (a, *idx), counter)
+
+
+def strip_spmm(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
+               tm: int, tk: int, split2: bool = False) -> torch.Tensor:
+    """Launch ``entry`` on the current stream: :func:`bind`, then the
+    launch, for a caller that launches a plan once."""
+    return bind(entry, arrs, b, n_out_strips, tm, tk, split2)(b)

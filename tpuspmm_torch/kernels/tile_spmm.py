@@ -217,15 +217,38 @@ def index_arrays(plan: TilePlan, device, min_dense: float) -> dict:
         lambda: {k: host_index(plan, min_dense)[k] for k in chunk_cuda.INDEX})
 
 
+def owner_launch(plan: TilePlan, b: torch.Tensor, entry: str, split2: bool,
+                 counter):
+    """The owner routine's launch as ``entry`` (K3 or K4), bound to
+    ``plan``'s tile index for B of b's shape, dtype and device
+    (``chunk_cuda.bind``), once, and cached on the plan; ``counter`` is
+    the entry whose ``launches`` it counts."""
+    key = ("launch", entry, int(b.shape[1]), b.dtype, b.device, split2)
+    return plan.derived(key, lambda: chunk_cuda.bind(
+        entry, index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
+        b, plan.shape[0], plan.tile_m, plan.tile_k, split2,
+        counter=counter))
+
+
+def tiles_launch(plan: TilePlan, b: torch.Tensor, mode: str = "split"):
+    """:func:`spmm_tiles`' launch on the card for B of b's shape, dtype
+    and device (contiguous): ``launch(b)`` is C."""
+    split2 = check_mode(mode)
+    check_operand(plan, b)
+    return owner_launch(plan, b, "tile_chunk_spmm", split2, spmm_tiles)
+
+
 def spmm_tiles(plan: TilePlan, b: torch.Tensor, tile_n: int | None = None,
                mode: str = "split") -> torch.Tensor:
     """SpMM from a prebuilt TilePlan: the (M, N) float32 result on b's
-    device.  On a CUDA tensor it launches ``tile_chunk_spmm`` or raises;
-    on a CPU tensor it runs :func:`tile_spmm_plain` in column blocks of
-    ``tile_n`` (JAX's column tile: min(round_up(N, 128), 512) by
-    default), which leave the result unchanged.  ``tile_n`` has no effect
-    on the card: the routine picks its own column tile (64 or 128)."""
-    split2 = check_mode(mode)
+    device.  On a CUDA tensor it launches ``tile_chunk_spmm`` (its
+    launch bound once per plan, B width, B dtype and device:
+    :func:`tiles_launch`) or raises; on a CPU tensor it runs
+    :func:`tile_spmm_plain` in column blocks of ``tile_n`` (JAX's column
+    tile: min(round_up(N, 128), 512) by default), which leave the result
+    unchanged.  ``tile_n`` has no effect on the card: the routine picks
+    its own column tile (64 or 128)."""
+    check_mode(mode)
     check_operand(plan, b)
     n = int(b.shape[1])
     tile_n = tile_n or min(round_up(n, 128), 512)
@@ -234,12 +257,8 @@ def spmm_tiles(plan: TilePlan, b: torch.Tensor, tile_n: int | None = None,
     if b.device.type == "cpu":
         return torch.cat([tile_spmm_plain(plan, b[:, j:j + tile_n], mode)
                           for j in range(0, n, tile_n)], dim=1)
-    out = chunk_cuda.launch(
-        "tile_chunk_spmm",
-        index_arrays(plan, b.device, dense_min(plan.tile_k, split2)),
-        b.contiguous(), plan.shape[0], plan.tile_m, plan.tile_k, split2)
-    spmm_tiles.launches += 1
-    return out
+    b = b.contiguous()
+    return tiles_launch(plan, b, mode)(b)
 
 
 spmm_tiles.launches = 0

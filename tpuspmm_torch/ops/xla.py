@@ -157,10 +157,21 @@ def dense_f32(a) -> np.ndarray:
     return dense.astype(np.float32)
 
 
+def dense_operand(a, device) -> torch.Tensor:
+    """dense(A) as float32 on ``device``, built once (:func:`dense_f32`)
+    and cached on the container per device."""
+    (a_dense,) = cached_device(a, "dense_f32", device,
+                               lambda: (dense_f32(a),))
+    return a_dense
+
+
+def dense_product(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a_dense @ B in full f32 (B upcast from bf16)."""
+    with full_f32_matmul():
+        return torch.matmul(a_dense, b.float())
+
+
 def spmm_densify_cached(a, b: torch.Tensor) -> torch.Tensor:
     """C = dense(A) @ B with dense(A) built once and cached on the
     container per device; float32 result (B upcast from bf16)."""
-    (a_dense,) = cached_device(a, "dense_f32", b.device,
-                               lambda: (dense_f32(a),))
-    with full_f32_matmul():
-        return torch.matmul(a_dense, b.float())
+    return dense_product(dense_operand(a, b.device), b)

@@ -76,9 +76,11 @@ and w512 (large_25605 w256, the headline, among them) and WIDE_DIRS at
 their on-disk B, each in a family (uniform, pruned, sparse, corpus,
 wide).  Each route is timed in ROUTE_ROUNDS interleaved rounds (the
 median).  The fit (``fit_routes``) is a non-negative least squares in
-relative error, one route family at a time: the device terms against the
-serves' device time, the host term against the serve time of host-bound
-serves; the coefficients are rounded to 6 significant digits.
+relative error: the device terms one route family at a time (panel and
+pair, one kernel, as one) against the serves' device time, one host term
+for every family (one host path, the served handle's launch) against the
+serve time of host-bound serves; the coefficients are rounded to 6
+significant digits.
 ``--table`` prints, for every record with two or more routes measured,
 the regret (serve time over the fastest measured route's) of the route
 the fitted row prices cheapest and of the route JAX's fixed order takes
@@ -95,7 +97,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib
 import json
 import math
 import os
@@ -133,8 +134,8 @@ ROUTE_ROUNDS = 5
 PLAN_FLOOR = 128 * MIB
 PLAN_CAP = 512 * MIB
 B_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-# the routes group's dirs at their on-disk B (4096 and 12600 columns)
-WIDE_DIRS = ("medium_4096", "large_15120")
+# the routes group's dirs at their on-disk B (4096, 12600 and 2048 columns)
+WIDE_DIRS = ("medium_4096", "large_15120", "medium_2048")
 CONSTANTS = ("densify_min_density", "densify_max_bytes",
              "tile_min_nnz_per_chunk", "panel_gather_gbps",
              "panel_max_plan_bytes")
@@ -148,19 +149,6 @@ SIDES = {
         {"densify_min_density": INF, "panel_max_plan_bytes": 0},
         {"tile_min_nnz_per_chunk": 0.0}, {"tile_min_nnz_per_chunk": INF}),
 }
-# the callees of dispatch.spmm_pallas, one a route
-ROUTE_CALLS = (("tpuspmm_torch.ops.exact", "spmm_exact", "exact"),
-               ("tpuspmm_torch.kernels.bsr_spmm", "spmm_bsr_stream",
-                "bsr_stream"),
-               ("tpuspmm_torch.ops.xla", "spmm_densify_cached", "densify"),
-               ("tpuspmm_torch.kernels.panel_spmm", "spmm_panel", "panel"),
-               ("tpuspmm_torch.kernels.pair_spmm", "spmm_pair", "pair"),
-               ("tpuspmm_torch.kernels.csr_vmem", "spmm_staged", "staged"),
-               ("tpuspmm_torch.kernels.cres_spmm", "spmm_cres", "cres"),
-               ("tpuspmm_torch.kernels.tile_spmm", "spmm_tiles", "tile"),
-               ("tpuspmm_torch.ops.xla", "spmm_xla", "xla"))
-
-
 # ---- operands ---------------------------------------------------------
 
 def uniform(n: int, density: float, seed: int = 0):
@@ -235,20 +223,18 @@ def patched_row(overrides: dict, jax_order: bool = False):
 
 
 def served_route(call):
-    """(call(), the route ``dispatch.spmm_pallas`` handed the call to):
-    each route's callee recorded as it is entered."""
-    served = []
-    with contextlib.ExitStack() as stack:
-        for modname, attr, tag in ROUTE_CALLS:
-            mod = importlib.import_module(modname)
+    """(call(), the route of the handle ``dispatch.spmm_pallas`` served the
+    call from): each handle recorded as ``dispatch.served`` hands it out;
+    the route's own entry points and launches run as they are."""
+    from tpuspmm_torch.kernels import dispatch
 
-            def wrapper(*args, _fn=getattr(mod, attr), _tag=tag, **kwargs):
-                served.append(_tag)
-                return _fn(*args, **kwargs)
-            # one attribute dict: a callee that counts its launches on
-            # itself (``spmm_panel.launches += 1``) reaches the wrapper
-            wrapper.__dict__ = getattr(mod, attr).__dict__
-            stack.enter_context(mock.patch.object(mod, attr, wrapper))
+    served, real = [], dispatch.served
+
+    def recorder(*args, **kwargs):
+        handle = real(*args, **kwargs)
+        served.append(handle.route)
+        return handle
+    with mock.patch.object(dispatch, "served", recorder):
         out = call()
     return out, served[0] if served else None
 
@@ -697,12 +683,12 @@ def fit_routes(records, held_out=None) -> dict:
     family over its gate-passing serves (family ``held_out``'s records
     left out), each by a non-negative least squares in relative error
     and rounded to 6 significant digits: the device terms against the
-    serves' device time (``device_ms``, the graph replay), the host term
-    (a constant) against the serve time of the host-bound serves, those
-    whose device time is under half their serve time, panel's and pair's
-    together (one host path).  Where the held-out fit leaves a family no
-    serve of either kind, that family's coefficients are the fit of every
-    record's."""
+    serves' device time (``device_ms``, the graph replay), panel's and
+    pair's together (one kernel); the host term (a constant, one for every
+    family: one host path) against the serve time of the host-bound
+    serves, those whose device time is under half their serve time.
+    Where the held-out fit leaves a family no serve of either kind, that
+    family's coefficients are the fit of every record's."""
     from scipy.optimize import nnls
 
     from tpuspmm_torch.kernels import dispatch
@@ -722,9 +708,14 @@ def fit_routes(records, held_out=None) -> dict:
                                 for key in dispatch.SERVE_TERMS[fam][1:]])
             if side["device_ms"] < side["ms"] / 2:
                 host[fam].append([1.0 / (side["ms"] * 1e3)])
-    # panel and pair serve through one host path (the strip routine's
-    # wrapper): one host term, fitted over both routes' serves
-    host["panel"] = host["pair"] = host["panel"] + host["pair"]
+    # every route serves through one host path, the served handle's
+    # launch (dispatch.served): one host term, fitted over every family's
+    # host-bound serves; panel and pair run one kernel, the strip routine:
+    # one set of device coefficients, fitted over both routes' serves and
+    # applied to each route's own plan
+    shared = [row for fam in host for row in host[fam]]
+    host = {fam: shared for fam in host}
+    device["panel"] = device["pair"] = device["panel"] + device["pair"]
     coef = {}
     for fam, keys in dispatch.SERVE_TERMS.items():
         if held_out and not (device[fam] and host[fam]):
