@@ -1,0 +1,6 @@
+"""API and served handle, in the decode cells (it moves ``gflops.decode``):
+read as ``api.served_us_per_call``."""
+
+from spmm_bench import spec
+
+read = spec.reader("api.served_us_per_call")

@@ -35,6 +35,7 @@ from tpuspmm_torch.formats.bsr import BSR
 from tpuspmm_torch.kernels import bsr_cuda
 from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
 from tpuspmm_torch.ops import xla
+from tpuspmm_torch.utils import profiling
 
 
 def prep_bsr(a: BSR) -> dict:
@@ -81,17 +82,18 @@ def term_planes(a: BSR) -> np.ndarray:
     per (block, row sub-tile, 64-column k-step) the three sub-tile x 64
     term planes, each swizzled (:func:`swizzle128`), so one bulk copy
     stages a step.  ``spmm_bsr_stream`` builds them once per matrix and
-    device."""
-    nb, bh, bw = a.blocks.shape
-    _, subs, kq, terms, rt, kc = bsr_cuda.planes_shape(nb, bh, bw)
-    parts = split_bf16(torch.from_numpy(
-        np.ascontiguousarray(a.blocks, dtype=np.float32)), terms)
-    bits = np.stack([p.view(torch.int16).numpy() for p in parts])
-    # (term, block, sub, row, k-step, col) -> (block, sub, k-step, term, row,
-    # col)
-    bits = bits.reshape(terms, nb, subs, rt, kq, kc).transpose(
-        1, 2, 4, 0, 3, 5)
-    return np.ascontiguousarray(swizzle128(bits))
+    device; a build is the span ``tpuspmm_torch.bsr.term_planes``."""
+    with profiling.span("tpuspmm_torch.bsr.term_planes"):
+        nb, bh, bw = a.blocks.shape
+        _, subs, kq, terms, rt, kc = bsr_cuda.planes_shape(nb, bh, bw)
+        parts = split_bf16(torch.from_numpy(
+            np.ascontiguousarray(a.blocks, dtype=np.float32)), terms)
+        bits = np.stack([p.view(torch.int16).numpy() for p in parts])
+        # (term, block, sub, row, k-step, col) -> (block, sub, k-step, term,
+        # row, col)
+        bits = bits.reshape(terms, nb, subs, rt, kq, kc).transpose(
+            1, 2, 4, 0, 3, 5)
+        return np.ascontiguousarray(swizzle128(bits))
 
 
 def block_row_order(a: BSR) -> np.ndarray:

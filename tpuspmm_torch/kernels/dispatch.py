@@ -46,11 +46,13 @@ import warnings
 
 import numpy as np
 import torch
+from torch.autograd import profiler as torch_profiler
 
 from tpuspmm_torch.config import default_config
 from tpuspmm_torch.engine.report import HBM_GBPS
 from tpuspmm_torch.formats.base import container_cache
 from tpuspmm_torch.kernels.common import round_up
+from tpuspmm_torch.utils import profiling
 
 TILE_FAMILY = ("staged", "cres", "tile")
 # the serve-time model: each route family's row keys, the coefficient of
@@ -416,13 +418,15 @@ class Served:
     bound kernel launch (its plan checked once, when bound: ``bind`` in
     ``kernels/*_cuda.py``), the dense product on the cached dense A, or
     the plain-torch path (exact, xla); on the CPU it is the route's entry
-    point, which runs the plain version."""
+    point, which runs the plain version.  ``span`` names ``launch``'s span,
+    ``tpuspmm_torch.launch.<route>``."""
 
-    __slots__ = ("route", "source", "row", "launch")
+    __slots__ = ("route", "source", "row", "launch", "span")
 
     def __init__(self, route: str, source, row: dict, launch):
         self.route, self.source, self.row = route, source, row
         self.launch = launch
+        self.span = f"tpuspmm_torch.launch.{route}"
 
 
 def served(a, b: torch.Tensor, config=None) -> Served:
@@ -433,17 +437,22 @@ def served(a, b: torch.Tensor, config=None) -> Served:
     it again.  Building it runs everything the route needs (the
     compensated check, ``stream_operand``, the row, the pricing or JAX's
     order, the plans and their device arrays, the kernel's binding); a
-    repeat serve runs none of it."""
+    repeat serve runs none of it.  A build is the span
+    ``tpuspmm_torch.served.build``, holding ``.decide`` (:func:`_decide`)
+    and ``.bind`` (:func:`_launch`)."""
     config = config or default_config()
     key = ("served", int(b.shape[1]), b.dtype, b.device,
            tuple(vars(config).values()))
     cache = container_cache(a)
     handle = cache.get(key)
     if handle is None or handle.row != H100_FIT:
-        row = dict(H100_FIT)
-        kind, source = _decide(a, b, config)
-        handle = cache[key] = Served(kind, source, row,
-                                     _launch(kind, a, source, b, config))
+        with profiling.span("tpuspmm_torch.served.build"):
+            row = dict(H100_FIT)
+            with profiling.span("tpuspmm_torch.served.decide"):
+                kind, source = _decide(a, b, config)
+            with profiling.span("tpuspmm_torch.served.bind"):
+                launch = _launch(kind, a, source, b, config)
+            handle = cache[key] = Served(kind, source, row, launch)
     return handle
 
 
@@ -531,6 +540,13 @@ def _jax_order(a, b: torch.Tensor, config, th: dict):
 
 def spmm_pallas(a, b: torch.Tensor, config=None) -> torch.Tensor:
     """Best-strategy SpMM (the "pallas" / "auto" path) on b's device,
-    served from the operand's handle (:func:`served`)."""
+    served from the operand's handle (:func:`served`).  While a profiler
+    records, the lookup is the span ``tpuspmm_torch.served`` and the
+    launch the handle's (``Served.span``), one after the other."""
     b = b.contiguous()
-    return served(a, b, config).launch(b)
+    if not torch_profiler._is_profiler_enabled:
+        return served(a, b, config).launch(b)
+    with profiling.span("tpuspmm_torch.served"):
+        handle = served(a, b, config)
+    with profiling.span(handle.span):
+        return handle.launch(b)

@@ -20,6 +20,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd import profiler as torch_profiler
+
+from tpuspmm_torch.utils import profiling
 
 
 def _as_tensor(b, config=None) -> torch.Tensor:
@@ -45,7 +48,15 @@ def spmm(a, b, method: str = "auto", config=None) -> torch.Tensor:
     ELL or CSC), `b` a (K, N) torch tensor (f32 or bf16), served on its own
     device, or a numpy array, placed on ``config.device`` (the card unless
     the caller asks for the CPU); the result is a float32 tensor on b's
-    device."""
+    device.  While a profiler records, the call is the span
+    ``tpuspmm_torch.spmm`` (``utils/profiling.py``)."""
+    if torch_profiler._is_profiler_enabled:
+        with profiling.span("tpuspmm_torch.spmm"):
+            return _spmm(a, b, method, config)
+    return _spmm(a, b, method, config)
+
+
+def _spmm(a, b, method: str, config) -> torch.Tensor:
     from tpuspmm_torch.config import default_config
 
     config = config or default_config()
