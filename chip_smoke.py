@@ -2,9 +2,14 @@
 """Drive tpuspmm_torch's serving path and its CSR / COO / BSR / ELL
 engines on one NVIDIA GPU.
 
-Run from the repository root with no arguments:
+Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k6-parent DIR]
+
+``--k6-parent DIR``: a checkout of an earlier commit (``git archive``
+unpacked into a git-ignored directory, e.g. ``_archive/parent``), whose
+K6 phase 4b runs in a subprocess of its own on the same operands; every
+bf16-B output of K6 must equal that commit's bit for bit.
 
 Prints one JSON object per phase:
 
@@ -15,7 +20,8 @@ Prints one JSON object per phase:
    each, started together; ptxas's registers and spills of
    every kernel of the three, and the tensor-core instructions (HMMA,
    HGMMA) in their SASS (cuobjdump), which must not be zero (K6: HGMMA,
-   wgmma); no tile-owner or K6 kernel may spill, and the occupancy
+   wgmma); no tile-owner or K6 kernel may spill, ptxas may not serialise
+   any K6 kernel's wgmma (C7514), and the occupancy
    calculator must fit two tile-owner blocks an SM and at least one
    C-resident cluster on the card (its count, per build, in the record);
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
@@ -79,7 +85,14 @@ Prints one JSON object per phase:
    version (with the control) and the oracle, launched twice, on the block
    shapes and widths of K6_SHAPES (bh 8-512); both builds that stage B
    (16-byte cp.async, and plain loads for rows not 16-byte aligned) must
-   be among those held, for f32 and bf16 B;
+   be among those held, for f32 and bf16 B (with bf16 B the first is the
+   warp-specialised build, whose consumers ``bsr_cuda.ws_consumers``
+   gives and the records carry).  With ``--k6-parent``, every bf16-B
+   output of the phase equals the parent's bit for bit.  Then K6's times
+   (bf16 and f32 B) on an Olmo-Hybrid-7B gate and down weight as the
+   benchmark draws them (``strip_sweep.bsr_weights``: ROTATE weights
+   launched in turn, so a call's planes are not in L2 from the last), at
+   w512 and w16, each held to its plain version;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
    runs: large_25605 w256 in f32 and bf16, one record in bench.py's shape;
    then the corpus dirs large_15120, large_21074, medium_2048 and
@@ -419,6 +432,53 @@ SPLIT2_TOL = 2.0 ** -20
 
 def plain_tol(mode: str) -> float:
     return SPLIT2_TOL if mode == "split2" else PLAIN_TOL
+
+
+# a checkout of an earlier commit whose K6 gives phase 4b's bf16-B outputs
+# bit for bit (``--k6-parent DIR``), or None
+K6_PARENT = (sys.argv[sys.argv.index("--k6-parent") + 1]
+             if "--k6-parent" in sys.argv else None)
+# the parent's K6 on phase 4b's operands, run from its checkout (argv:
+# the operands' file, the outputs' file)
+PARENT_K6 = """
+import sys
+import torch
+from tpuspmm_torch.formats import BSR
+from tpuspmm_torch.kernels import bsr_spmm
+out = {}
+for key, c in torch.load(sys.argv[1]).items():
+    a = BSR(indptr=c["indptr"].numpy(), indices=c["indices"].numpy(),
+            blocks=c["blocks"].numpy(), shape=tuple(c["shape"]),
+            block_size=tuple(c["block_size"]), nnz=int(c["nnz"]))
+    out[key] = bsr_spmm.spmm_bsr_stream(a, c["b"].cuda()).cpu()
+torch.save(out, sys.argv[2])
+"""
+
+
+def k6_parent_equal(parent: str, outputs: dict) -> dict:
+    """{key: the parent's K6 output equals ours bit for bit} for outputs
+    {key: (BSR, B, our output)}; the parent's K6 runs in a subprocess from
+    its checkout ``parent``, which builds its own library under its
+    build/."""
+    work = os.path.join(REPO, "build", "k6_parent")
+    os.makedirs(work, exist_ok=True)
+    inp, out = os.path.join(work, "in.pt"), os.path.join(work, "out.pt")
+    torch.save({key: {"indptr": torch.from_numpy(a.indptr),
+                      "indices": torch.from_numpy(a.indices),
+                      "blocks": torch.from_numpy(a.blocks),
+                      "shape": list(a.shape),
+                      "block_size": list(a.block_size), "nnz": int(a.nnz),
+                      "b": b.cpu()}
+                for key, (a, b, _) in outputs.items()}, inp)
+    parent = os.path.abspath(parent)
+    res = subprocess.run([sys.executable, "-c", PARENT_K6, inp, out],
+                         cwd=parent, env=dict(os.environ, PYTHONPATH=parent),
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"the parent's K6 failed:\n{res.stderr[-3000:]}")
+    theirs = torch.load(out)
+    return {key: bool(torch.equal(theirs[key], got))
+            for key, (_, _, got) in outputs.items()}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1135,6 +1195,9 @@ def main() -> int:
     check(bsr_tc["HGMMA"] > 0, f"K6 runs wgmma (HGMMA in its SASS: {bsr_tc})")
     check(all(r["spill_store_bytes"] == 0 for r in bsr_ptxas),
           f"no bsr_spmm.cu kernel spills ({bsr_ptxas})")
+    serialised = [line for line in bsr_cuda.LIBRARY.build_log().splitlines()
+                  if "C7514" in line or "Performance Loss" in line]
+    check(not serialised, f"ptxas serialises no K6 wgmma ({serialised})")
     check(stream_ptxas and all(r["spill_store_bytes"] == 0
                                for r in stream_ptxas),
           f"the stream kernel builds without spills ({stream_ptxas})")
@@ -1554,6 +1617,8 @@ def main() -> int:
     k6 = bsr_spmm.spmm_bsr_stream
     k6.launches = 0
     k6_stats, k6_refs, staged = {}, {}, set()
+    # bf16-B outputs and their operands, for the parent's K6 (--k6-parent)
+    k6_bf16 = {}
 
     def k6_products3(kw, b):
         """The control of K6_TOL: K6's f32-B ladder cut to the products
@@ -1604,6 +1669,17 @@ def main() -> int:
         staged.add((str(b.dtype), bsr_cuda.vector_staging(b)))
         return got, err, scale, control
 
+    def k6_consumers(kw, b):
+        """The warp-specialised build's consumer warpgroups for (kw, b),
+        or None where another build takes b."""
+        n = int(b.shape[1])
+        if not (bsr_cuda.warp_specialised(b.dtype, n)
+                and bsr_cuda.vector_staging(b)):
+            return None
+        bh = kw.block_size[0]
+        return bsr_cuda.ws_consumers(
+            kw.num_block_rows * (bh // bsr_cuda.row_tile(bh)), n, sms)
+
     def k6_floors(kw, width: int) -> dict:
         """K6's tensor-core products at the bf16 rate (six a k-step with
         f32 B, three with bf16), for the whole call and for the owner of
@@ -1641,6 +1717,8 @@ def main() -> int:
                   else wb32.to(torch.bfloat16)):
             tag = "f32" if b.dtype == torch.float32 else "bf16"
             got, err, scale, control = k6_twice(kw, b, f"({key}, {tag})")
+            if tag == "bf16":
+                k6_bf16[key] = (kw, b, got.cpu())
             ref = oracle.spmm_oracle(w, b.float().cpu().numpy())
             if width == PRUNED_WIDTH:
                 k6_refs[wname, tag] = ref
@@ -1650,6 +1728,7 @@ def main() -> int:
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
                         "vector_staging": bsr_cuda.vector_staging(b),
+                        "ws_consumers": k6_consumers(kw, b),
                         "ms": cuda_time_ms(lambda: k6(kw, b)),
                         "device_ms": device_ms(lambda: k6(kw, b)),
                         "plain_ms": cuda_time_ms(
@@ -1691,18 +1770,56 @@ def main() -> int:
             tag = "f32" if b.dtype == torch.float32 else "bf16"
             got, err, scale, control = k6_twice(w, b,
                                                 f"{block} w{width} {tag}")
+            if tag == "bf16":
+                k6_bf16[f"{block} w{width}"] = (w, b, got.cpu())
             gate = allclose(got, oracle.spmm_oracle(w, b.float().cpu().numpy()))
             check(gate, f"K6 {block} w{width} {tag} gate vs f64 oracle")
             if w.nblocks == 0:
                 check(not got.any(), "K6: no stored block gives exact zeros")
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
-                        "vector_staging": bsr_cuda.vector_staging(b)}
+                        "vector_staging": bsr_cuda.vector_staging(b),
+                        "ws_consumers": k6_consumers(w, b)}
             del got
         emit("bsr_kernel_shapes", **rec)
     # both builds that stage B were held, with f32 and bf16 B
     check(len(staged) == 4, f"K6 ran both B staging builds in both dtypes "
                             f"({sorted(staged)})")
+    if K6_PARENT:
+        same = k6_parent_equal(K6_PARENT, k6_bf16)
+        emit("bsr_kernel_vs_parent", parent=K6_PARENT, bit_equal=same)
+        check(same and all(same.values()),
+              f"K6's bf16-B outputs equal the parent's bit for bit ({same})")
+    del k6_bf16
+    # K6 on Olmo-Hybrid-7B's gate and down weights, as the benchmark draws
+    # them, ROTATE weights in turn (the device time is a launch's)
+    import strip_sweep
+    for wname, rows, cols, block, dens, seed, width in (
+            strip_sweep.BSR_CASES[2:]):
+        ws = strip_sweep.bsr_weights(wname, rows, cols, block, dens, seed)
+        ob32 = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+            (cols, width)) * 0.05).astype(np.float32)).to(dev)
+        rec = {"weight": wname, "shape": [rows, cols], "width": width,
+               "nblocks": ws[0].nblocks, "weights_in_turn": len(ws),
+               "most_blocks_in_a_row": int(np.diff(ws[0].indptr).max())}
+        for b in (ob32.to(torch.bfloat16), ob32):
+            tag = "f32" if b.dtype == torch.float32 else "bf16"
+            got = k6(ws[0], b)
+            want = bsr_spmm.bsr_spmm_plain(ws[0], b)
+            err, scale = max_abs_err(got, want), float(want.abs().max())
+            check(err <= K6_TOL * scale,
+                  f"K6 {wname} w{width} {tag} |kernel - plain| {err} <= "
+                  f"{K6_TOL}*{scale}")
+            del got, want
+            rec[tag] = {
+                "max_abs_err": err, "max_abs_c": scale,
+                "ws_consumers": k6_consumers(ws[0], b),
+                "ms": cuda_time_ms(lambda: [k6(w, b) for w in ws])
+                / len(ws),
+                "device_ms": device_ms(lambda: [k6(w, b) for w in ws])
+                / len(ws)}
+        emit("bsr_kernel_olmo", **rec)
+        del ws
     bsr_window = k6.launches
     emit("bsr_kernel_launches", bsr_stream=bsr_window)
 

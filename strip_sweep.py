@@ -6,7 +6,7 @@ Run from the repository root:
 
     python3 strip_sweep.py [--variants NAME,NAME,...]
     python3 strip_sweep.py --chunk [--variants NAME,NAME,...]
-    python3 strip_sweep.py --bsr [--variants NAME,...]
+    python3 strip_sweep.py --bsr [--variants NAME,...] [--cases WEIGHT,...]
     python3 strip_sweep.py --profile-host
 
 Each variant is a copy of the source with some of its lines replaced
@@ -30,9 +30,13 @@ per kernel, and one JSON line per (case, B dtype) with each variant's ms.
 ``--bsr`` sweeps the block-streaming kernel K6 (csrc/bsr_spmm.cu):
 BSR_VARIANTS patch its source (column tile 64 or 128, ring depths, block
 rows in index order against heaviest first, B staged by plain loads
-against cp.async, and two controls, which are not held to the tolerance:
-three f32-B products instead of six, and 1 KB of a step's A planes copied
-instead of all) on BSR_CASES, chip_smoke.py's pruned weights.  Each
+against cp.async, and controls, which are not held to the tolerance:
+three f32-B products instead of six, 1 KB of a step's A planes copied
+instead of all, the ring's copies alone, and the step's products alone on
+stages filled once; the last two patch the loop that f32 B and unaligned
+bf16 B run) on BSR_CASES: chip_smoke.py's pruned weights, and an
+Olmo-Hybrid-7B gate and down weight as the benchmark draws them, at w512
+and w16 (``--cases olmo_gate,olmo_down`` for those alone).  Each
 variant runs through ``spmm_bsr_stream`` with the variant's library, is
 held against the plain version (K6_TOL, 2e-6·max|C|, chip_smoke.py's
 limit for K6, which the three-product control must miss with f32 B) and
@@ -359,6 +363,16 @@ CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
                ("medium_4096", None, ("f32",)),
                ("medium_2048", None, ("f32",)),
                ("random_2048", 1024, ("f32", "bf16")))
+# the serving ring's refill of a stage, inside its step loop
+RING_REFILL = ("    if (t + S - 1 < steps) issue(t + S - 1);\n"
+              "    tc::cp_async_commit();\n")
+# the warp-specialised build: its producer's refill, its consumer's wait
+# for a stage and its products
+WS_REFILL = "      if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);"
+WS_FULL = "    tc::mbar_wait(&full[st], (t / S) & 1);"
+WS_PRODUCTS = ("#pragma unroll\n    for (int kk = 0; kk < KC / 16; ++kk)\n"
+               "#pragma unroll\n      for (int i = 0; i < TERMS; ++i)\n"
+               "        wgmma_ss")
 # name: [(text of bsr_spmm.cu, its replacement), ...]
 BSR_VARIANTS = {
     "serving": [],
@@ -375,12 +389,43 @@ BSR_VARIANTS = {
     "a_planes_1k": [("mbar_expect_tx(&bar[st], G::A_BYTES);",
                      "mbar_expect_tx(&bar[st], 1024);"),
                     ("G::A_BYTES, &bar[st]);", "1024, &bar[st]);")],
+    # the warp-specialised build's consumers: two whenever B is wider than
+    # one column tile, or one always
+    "ws_waves0": [const("WS_WAVES", 2, 0)],
+    "ws_one_consumer": [const("CONSUMER_WARPGROUPS", 2, 1)],
+    # controls of the warp-specialised build: its copies alone (no
+    # products); its products alone on the stages filled once
+    "ws_copy_only": [(WS_PRODUCTS, "    if (false)\n" + WS_PRODUCTS)],
+    "ws_math_only": [(WS_REFILL, "      if (t >= S) continue;"),
+                     (WS_FULL, "    if (t < S) tc::mbar_wait(&full[st], 0);")],
+    # control: the ring as it is, with no products and no adds (the floor
+    # of its copies)
+    "copy_only": [(RING_REFILL, RING_REFILL + "    continue;\n")],
+    # control: the first S - 1 steps staged once, then every step's
+    # fragments and products on a stage already there (the floor of the
+    # step's chain without its copies)
+    "math_only": [(RING_REFILL, "    tc::cp_async_commit();\n"),
+                  ("    const int st = t % S;\n"
+                   "    tc::cp_async_wait<S - 2>();\n"
+                   "    tc::mbar_wait(&bar[st], (t / S) & 1);",
+                   "    const int st = t % (S - 1);\n"
+                   "    tc::cp_async_wait<0>();\n"
+                   "    if (t < S - 1) tc::mbar_wait(&bar[st], 0);")],
 }
-BSR_CONTROLS = ("products3", "a_planes_1k")
+BSR_CONTROLS = ("products3", "a_planes_1k", "copy_only", "math_only")
 # (weight, rows, cols, block, block density, seed, B width): chip_smoke.py's
-# pruned weights (a) and (b), B drawn as there
+# pruned weights (a) and (b), B drawn as there; and an Olmo-Hybrid-7B gate
+# and down weight as spmm_bench's pruned_ffn generator draws them (OLMO),
+# ROTATE distinct weights a case launched in turn, so that one call's
+# planes are not in L2 from the call before, as in the benchmark
 BSR_CASES = (("a", 4096, 4096, (128, 128), 0.1, 0, 512),
-             ("b", 4096, 4096, (8, 128), 0.02, 1, 512))
+             ("b", 4096, 4096, (8, 128), 0.02, 1, 512),
+             ("olmo_gate", 11008, 3840, (128, 128), 0.1, 0, 512),
+             ("olmo_gate", 11008, 3840, (128, 128), 0.1, 0, 16),
+             ("olmo_down", 3840, 11008, (128, 128), 0.1, 0, 512),
+             ("olmo_down", 3840, 11008, (128, 128), 0.1, 0, 16))
+OLMO = ("olmo_gate", "olmo_down")
+ROTATE = 4
 # (corpus dir, B width or None for the on-disk width, B dtypes)
 CASES = (("large_25605", 256, ("f32", "bf16")),
          ("large_21074", 256, ("f32", "bf16")),
@@ -629,11 +674,32 @@ def chunk_sweep(names: list) -> int:
     return 0
 
 
-def bsr_sweep(names: list) -> int:
-    """Build and time BSR_VARIANTS on BSR_CASES
-    (see the module docstring); prints one JSON line per build and one per
-    (case, B dtype)."""
+def bsr_weights(wname, rows, cols, block, density, seed) -> list:
+    """The BSR weights of a BSR_CASES case: chip_smoke.py's weight, or
+    ROTATE Olmo weights drawn as spmm_bench's pruned_ffn generator draws
+    them (one group of the shape, at block sparsity 1 - density)."""
     from tpuspmm_torch.formats import BSR
+
+    if wname not in OLMO:
+        return [BSR.random_blocks(rows, cols, block, density, seed)]
+    from spmm_bench.generators import pruned_ffn
+    from spmm_bench.operands import generator
+
+    group = pruned_ffn._group((rows, cols), ROTATE, block, 1.0 - density,
+                              generator(seed, "operands", "cpu"), "cpu")
+    return [BSR(indptr=indptr.numpy().astype(np.int32),
+                indices=indices.numpy().astype(np.int32),
+                blocks=np.ascontiguousarray(values.numpy()),
+                shape=(rows, cols), block_size=tuple(block),
+                nnz=int(values.numel()))
+            for indptr, indices, values in group]
+
+
+def bsr_sweep(names: list, cases=None) -> int:
+    """Build and time BSR_VARIANTS on BSR_CASES (those whose weight is in
+    ``cases``, where given; see the module docstring); prints one JSON
+    line per build and one per (case, B dtype).  Times are a launch's:
+    an Olmo case's graph launches its ROTATE weights in turn."""
     from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm, cuda_build
     from tpuspmm_torch.utils.compare import max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
@@ -652,8 +718,15 @@ def bsr_sweep(names: list) -> int:
             libs[rec["name"]] = ctypes.CDLL(rec["path"])
             bsr_cuda._bind(libs[rec["name"]])
     dev = torch.device("cuda")
+    weights = {}
     for wname, rows, cols, block, density, seed, width in BSR_CASES:
-        w = BSR.random_blocks(rows, cols, block, density, seed)
+        if cases is not None and wname not in cases:
+            continue
+        key = (wname, rows, cols, block, density, seed)
+        if key not in weights:
+            weights = {key: bsr_weights(*key)}  # one case's weights held
+        ws = weights[key]
+        w = ws[0]
         b32 = torch.from_numpy((np.random.default_rng(seed).standard_normal(
             (cols, width)) * 0.05).astype(np.float32)).to(dev)
         counts = np.diff(w.indptr)
@@ -662,12 +735,13 @@ def bsr_sweep(names: list) -> int:
 
             def run(name):
                 bsr_cuda.load = lambda: libs[name]
-                return bsr_spmm.spmm_bsr_stream(w, b)
+                return [bsr_spmm.spmm_bsr_stream(x, b) for x in ws][0]
 
             want = bsr_spmm.bsr_spmm_plain(w, b)
             scale = float(want.abs().max())
             rec = {"case": wname, "b": tag, "width": width,
                    "block": list(block), "nblocks": w.nblocks,
+                   "weights_in_turn": len(ws),
                    "most_blocks_in_a_row": int(counts.max()),
                    "empty_block_rows": int((counts == 0).sum()),
                    "max_abs_c": scale, "err": {}, "ms": {}, "call_ms": {}}
@@ -686,8 +760,8 @@ def bsr_sweep(names: list) -> int:
             for name in list(libs) + list(libs)[::-1]:
                 times[name].append(cuda_time_ms(graphs[name].replay))
                 calls[name].append(cuda_time_ms(lambda: run(name)))
-            rec["ms"] = {k: min(v) for k, v in times.items()}
-            rec["call_ms"] = {k: min(v) for k, v in calls.items()}
+            rec["ms"] = {k: min(v) / len(ws) for k, v in times.items()}
+            rec["call_ms"] = {k: min(v) / len(ws) for k, v in calls.items()}
             rec["ok"] = (all(e <= K6_TOL for n, e in rec["err"].items()
                              if n not in BSR_CONTROLS)
                          and (tag == "bf16"
@@ -714,6 +788,9 @@ def main() -> int:
                          "and CLUSTER_VARIANTS")
     ap.add_argument("--bsr", action="store_true",
                     help="sweep the block-streaming kernel's BSR_VARIANTS")
+    ap.add_argument("--cases", default=None,
+                    help="with --bsr: comma-separated BSR_CASES weights "
+                         "(default: all)")
     ap.add_argument("--profile-host", action="store_true",
                     help="only profile the host side of 200 serves of "
                          "large_25605 w256 with bf16 B (cProfile)")
@@ -729,7 +806,8 @@ def main() -> int:
                 else VARIANTS)
     names = (args.variants.split(",") if args.variants else list(variants))
     if args.bsr:
-        return bsr_sweep(names)
+        return bsr_sweep(names, args.cases.split(",") if args.cases
+                         else None)
     if args.chunk:
         return chunk_sweep(names)
     with ThreadPoolExecutor(len(names)) as pool:

@@ -340,3 +340,101 @@ def test_ell_xla_matches_jax(name):
         got = xla.spmm_ell_xla(a, tb)
         assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
         assert torch.equal(xla.spmm_xla(a, tb), got)
+
+
+def test_ws_constants_equal_the_source():
+    """The warp-specialised build's constants: its producer and consumer
+    warpgroups, its ring's depth at most and the waves that take two
+    consumers; at 128-row sub-tiles a ring of two stages (the step's
+    planes and two unpadded 64 x 64 bf16 B tiles) fits the opt-in shared
+    memory."""
+    src = _source_constants()
+    for name in ("PRODUCER_WARPGROUPS", "CONSUMER_WARPGROUPS", "WS_STAGES",
+                 "WS_WAVES"):
+        assert src[name] == getattr(bsr_cuda, name), name
+    assert src["COLS"] == bsr_cuda.COLUMN_TILE
+    # at least two stages fit at 128-row sub-tiles with two consumers
+    stage = (bsr_cuda.TERMS * 128 * bsr_cuda.K_CHUNK * 2
+             + bsr_cuda.CONSUMER_WARPGROUPS * bsr_cuda.K_CHUNK
+             * bsr_cuda.COLUMN_TILE * 2)
+    assert 1024 + 2 * (stage + 16) <= src["SMEM_LIMIT"]
+
+
+# (B dtype, width, data aligned to 16 bytes): whether the warp-specialised
+# build takes it
+BUILD_CHOICE = [(torch.bfloat16, 512, True, True),
+                (torch.bfloat16, 16, True, True),
+                (torch.bfloat16, 200, True, True),
+                (torch.bfloat16, 77, True, False),
+                (torch.bfloat16, 130, True, False),
+                (torch.bfloat16, 512, False, False),
+                (torch.float32, 512, True, False),
+                (torch.float32, 16, True, False)]
+
+
+@pytest.mark.parametrize("dtype,n,aligned,ws", BUILD_CHOICE)
+def test_build_choice(dtype, n, aligned, ws):
+    assert bsr_cuda.warp_specialised(dtype, n, aligned) is ws
+
+
+# (row sub-tiles, B width, SMs, consumers): the Olmo-Hybrid-7B gate and
+# down weights (86 and 30 block rows of 128) at w512, w1024 and w16 on 132
+# SMs, and widths at and past one column tile
+CONSUMERS = [(86, 512, 132, 2), (30, 512, 132, 1), (86, 1024, 132, 2),
+             (30, 1024, 132, 1), (86, 16, 132, 1), (30, 16, 132, 1),
+             (86, 64, 132, 1), (264, 65, 132, 2), (263, 65, 132, 1),
+             (65, 512, 132, 1), (66, 512, 132, 2), (1, 128, 1, 1)]
+
+
+@pytest.mark.parametrize("units,n,sms,want", CONSUMERS)
+def test_ws_consumers(units, n, sms, want):
+    """Two consumers (a 128-column tile) only where B is wider than one
+    64-column tile and the wide tiles fill the SMs WS_WAVES times."""
+    assert bsr_cuda.ws_consumers(units, n, sms) == want
+
+
+@pytest.mark.parametrize("nblocks,bh,bw", [(96, 128, 128), (4, 512, 256),
+                                           (7, 8, 128), (3, 24, 384),
+                                           (0, 32, 128)])
+def test_planes_shape_unchanged(nblocks, bh, bw):
+    """The term planes the warp-specialised build reads are the register
+    builds': (block, sub-tile, k-step, term, sub-tile row, 64 columns)."""
+    rt = bsr_cuda.row_tile(bh)
+    assert bsr_cuda.planes_shape(nblocks, bh, bw) == (nblocks, bh // rt,
+                                                      bw // 64, 3, rt, 64)
+
+
+@pytest.mark.parametrize("dtype,n,ws", [(torch.bfloat16, 512, True),
+                                        (torch.bfloat16, 16, True),
+                                        (torch.bfloat16, 77, False),
+                                        (torch.float32, 512, False)])
+def test_bind_takes_the_build_and_counts_it(dtype, n, ws, monkeypatch):
+    """A binding for a B that takes the warp-specialised build records one
+    ``tpuspmm_torch.bsr.bind_ws`` span; f32 and unaligned bf16 B record
+    none.  Each launch asks for the cp.async staging (b_vec, which with
+    bf16 B is the warp-specialised build) only where B's rows and data
+    are 16-byte aligned.  The card is stood in for: B's device check is
+    the only one that needs it."""
+    from tpuspmm_torch.kernels import cuda_build
+    from tpuspmm_torch.utils import profiling
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    a, _ = pair_of("b128x128")
+    arrays = [torch.from_numpy(x) for x in
+              (a.indptr, a.indices, bsr_spmm.block_row_order(a),
+               bsr_spmm.term_planes(a))]
+    b = torch.zeros(a.shape[1], n, dtype=dtype)
+
+    def count():
+        return profiling.snapshot().get(bsr_cuda.BIND_WS_SPAN, (0, 0.0))[0]
+
+    before = count()
+    launch = bsr_cuda.bind(*arrays, b, a.shape[0], a.block_size)
+    assert count() - before == int(ws)
+    names = ["indptr", "indices", "row_order", "planes", "b", "b_bf16",
+             "b_vec", "out"]
+    got = dict(zip(names, launch.args(4096, 8192, 0)))
+    assert got["b_bf16"] == int(dtype == torch.bfloat16)
+    assert got["b_vec"] == int(n * b.element_size() % 16 == 0)
+    # B's data off 16 bytes: the plain-load build, whatever the binding
+    assert dict(zip(names, launch.args(4098, 8192, 0)))["b_vec"] == 0

@@ -24,10 +24,11 @@
 // sub-tiles, which keeps the accumulators at RT / 2 = 64 registers a
 // thread), and every block height the admission takes (bh % 8 == 0) runs
 // without padding block rows.
-//   - B^T is wgmma's A operand, from registers: each thread reads its
-//     fragment's values from the staged B tile and, for an f32 B, splits
-//     them into three bf16 terms as it loads them (tc::bf16x2_term); a bf16
-//     B is loaded as it is (ldmatrix.trans).
+//   - B^T is wgmma's A operand, from registers in the register builds:
+//     each thread reads its fragment's values from the staged B tile and,
+//     for an f32 B, splits them into three bf16 terms as it loads them
+//     (tc::bf16x2_term); a bf16 B is loaded as it is (ldmatrix.trans).  The
+//     warp-specialised build (below) reads it by descriptor.
 //   - A^T is wgmma's B operand, from shared memory by descriptor.  The
 //     blocks are static, so their three bf16 terms (split_bf16's, in order)
 //     are built once per matrix on the host (kernels/bsr_spmm.py::
@@ -54,32 +55,55 @@
 // drop is 4.4-4.6e-6·max|C| in the CPU tests (tests/test_torch_bsr.py),
 // and chip_smoke.py's control checks that it misses on the card.
 //
-// Staging: a ring of STAGES steps in dynamic shared memory (3 at RT 128, 2
-// below), each the step's A planes (bulk copy, mbarrier) and its 64 x TN B
-// tile.  B changes every call, so it is staged by 16-byte cp.async (rows >=
-// K and columns >= N zero-filled) where its rows are 16-byte aligned, and
-// by plain loads and stores into the same ring where they are not (f32 N %
+// Staging, f32 B and bf16 B whose rows are not 16-byte aligned (the
+// register builds): a ring of STAGES steps in dynamic shared memory (3 at
+// RT 128, 2 below), each the step's A planes (bulk copy, mbarrier) and its
+// 64 x TN B tile, staged by 16-byte cp.async where B's rows are 16-byte
+// aligned (f32) and by plain loads and stores where they are not (f32 N %
 // 4, bf16 N % 8, or an unaligned base: the wrapper picks the build, and
-// chip_smoke.py holds both).  Each step: wait for its copies, one
-// __syncthreads (the stage last read is then free), start the copies
-// STAGES - 1 steps ahead, load and split the step's B fragments, then issue
-// its wgmmas (24 with f32 B, 12 with bf16), wait for them and add them into
-// the sums.
+// chip_smoke.py holds both).  One warpgroup does everything in turn: wait
+// for the step's copies, one __syncthreads (the stage last read is then
+// free), start the copies STAGES - 1 steps ahead, load (and for f32 B
+// split) the step's B fragments, issue its wgmmas (24 with f32 B, 12 with
+// bf16), wait for them and add them into the sums.
 //
-// What bounds it: the products.  At the pruned-weight cell (96 blocks of
-// 128 x 128, B 4096 x 512) that is 9.7 GFLOP with f32 B (six products) or
-// 4.8 with bf16 B: 0.0098 / 0.0049 ms at 989 TFLOP/s, above the 0.0069 ms of
-// its 23 MB at 3.35 TB/s.  The block rows hold 0-9 blocks, so the owners of
-// the heaviest row set the floor: 9 blocks x 64 columns at one SM's share
-// of the rate, 0.015 / 0.0076 ms.  Measured (PERF.md; H100 SXM, 700 W):
-// about 0.038 / 0.025-0.030 ms, so the heaviest row's owner spends 2.5-4x
-// its products' time: a step's B split, its wait for copies and its
-// products run one after another on one warpgroup (copying 1 KB of a
-// step's planes instead of 48 KB is no faster).
+// bf16 B with 16-byte aligned rows takes the warp-specialised build
+// (bsr_ws_kernel): a producer warpgroup bulk-copies each step's planes and
+// cp.asyncs B's tiles, already in the 128-byte swizzle, into a ring of up
+// to WS_STAGES stages with a full and an empty mbarrier each and no
+// __syncthreads in the loop; one or two consumer warpgroups read B^T as
+// wgmma's A operand by descriptor (MN-major, the transpose bit) and A^T as
+// the register build does, so no fragment passes through registers.  Two
+// consumers share each step's planes over a 128-column tile, which halves
+// the plane bytes a product, and give the tensor cores two chains of
+// dependent wgmmas; a 128-column tile doubles a block row's products a
+// step, so one consumer takes grids that would not fill the SMs WS_WAVES
+// times (Olmo's down weight at w512, every width-16 call).  The products,
+// their order and their fresh accumulator a step are the register build's:
+// the output is the same bits (chip_smoke.py --k6-parent).
 //
-// Left for later: a producer warpgroup that writes B's bf16 terms into
-// shared memory, so that wgmma reads both operands by descriptor while the
-// consumer multiplies the previous step; cluster multicast of the planes.
+// What bounds it (strip_sweep.py --bsr; NVIDIA H100 80GB HBM3, 700 W;
+// one Olmo-Hybrid-7B gate weight 11008 x 3840 and one down weight
+// 3840 x 11008, 258 blocks of 128 x 128, four weights launched in turn, bf16
+// B).  The register build at w512: 48.0 / 42.8 us a call (gate / down);
+// its copies alone 35.0 / 27.8, its chain alone on staged data 42.0 /
+// 30.2: each step's chain, not the bytes, set its pace.  Copying the
+// planes once for a cluster of 4 or 8 column tiles (multicast) cut the L2
+// reads 4-8x and no copy time (40.1 / 42.3 / 43.2 us at 1 / 4 / 8): a
+// step's 56 KB reach each SM either way.  The warp-specialised build:
+// 32.4 / 31.9 us at w512 and 19.0 / 25.7 at w16 (register build 47.9 /
+// 42.4 and 21.0 / 34.5 in the same run); its products alone on staged
+// data take 31.4 / 29.1 and its copies alone 25.2 / 24.8, so the
+// consumers' wgmma chains now set the pace (a wgmma of m64n128k16 every
+// ~50 ns against the 35 ns of one SM's share of the peak).
+//
+// Left for later: the f32-B build's producer split (its B fragments are
+// split into bf16 terms in registers, so its B cannot be staged for wgmma
+// by descriptor without three B planes a step); interleaving two steps'
+// products a consumer (two accumulators: reading one while the other's
+// group runs made ptxas serialise the wgmmas, C7514, in some builds);
+// width 16, where 86 / 30 blocks of one consumer leave most of the 132
+// SMs idle; multicast of the planes, which did not pay here.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -106,6 +130,17 @@ constexpr int MAX_STAGES = 3;    // ring stages at most (128-row tiles)
 constexpr int SMALL_STAGES = 2;
 constexpr int F32_PRODUCTS = 6;  // ladder products a k-step with f32 B
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory per block
+// the warp-specialised build (bf16 B with 16-byte aligned rows): a
+// producer warpgroup and up to CONSUMER_WARPGROUPS consumers, each on its
+// own COLS columns of the block's tile, and a ring of at most WS_STAGES
+// stages.  Two consumers (a 2·COLS-column tile) where B is wider than COLS
+// and the grid of such tiles fills the SMs WS_WAVES times, else one: a
+// block row's owner then has half the products a step, which matters
+// where a few heavy rows set the time
+constexpr int PRODUCER_WARPGROUPS = 1;
+constexpr int CONSUMER_WARPGROUPS = 2;
+constexpr int WS_STAGES = 4;
+constexpr int WS_WAVES = 2;
 // row sub-tiles (wgmma's N): the first that divides bh
 constexpr int ROW_TILES[] = {128, 32, 8};
 
@@ -128,6 +163,28 @@ struct Geo {
   static constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES + 8);
   static constexpr int ACC = RT / 2;  // f32 accumulators a thread
   static_assert(A_BYTES % 1024 == 0 && STAGES >= 2 && STAGES <= FIT,
+                "geometry");
+};
+
+// shared memory of the warp-specialised build with C consumers: a stage is
+// the step's A planes and, for each consumer, its KC x COLS bf16 B tile,
+// 128-byte rows in the 128-byte swizzle (1024-byte aligned, no padding),
+// then a full and an empty barrier a stage, and 1 KB to align the dynamic
+// base
+template <int RT, int C>
+struct WsGeo {
+  static constexpr int THREADS = 128 * (PRODUCER_WARPGROUPS + C);
+  static constexpr int TN = COLS * C;  // the block's columns
+  static constexpr int PLANE_BYTES = RT * KC * 2;
+  static constexpr int A_BYTES = TERMS * PLANE_BYTES;
+  static constexpr int B_BYTES = KC * COLS * 2;  // one consumer's tile
+  static constexpr int STAGE = A_BYTES + C * B_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - 1024) / (STAGE + 16);
+  static constexpr int STAGES = FIT < WS_STAGES ? FIT : WS_STAGES;
+  static constexpr int SMEM = 1024 + STAGES * (STAGE + 16);
+  static constexpr int ACC = RT / 2;  // f32 accumulators a thread
+  static_assert(COLS * 2 == 128 && STAGE % 1024 == 0 && STAGES >= 2 &&
+                    C >= 1 && C <= CONSUMER_WARPGROUPS,
                 "geometry");
 };
 
@@ -214,9 +271,61 @@ __device__ __forceinline__ void wgmma<128>(float (&d)[64],
       : A_DESC);
 }
 
+// d (64 x N, f32) = a (64 x 16 bf16) @ b (16 x N bf16), plus d where `add`
+// is nonzero; both by descriptor: a MN-major (transposed: the 64 rows
+// contiguous, a row-major B tile read as B^T), b K-major
+template <int N>
+__device__ void wgmma_ss(float (&d)[N / 2], uint64_t a_desc, uint64_t b_desc,
+                         int add);
+
+#define SS_DESC "l"(a_desc), "l"(b_desc), "r"(add)
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[4], uint64_t a_desc,
+                                            uint64_t b_desc, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+      : ACC4(0)
+      : SS_DESC);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a_desc,
+                                             uint64_t b_desc, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : ACC16(0)
+      : SS_DESC);
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64],
+                                              uint64_t a_desc,
+                                              uint64_t b_desc, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 0;\n}\n"
+      : ACC16(0), ACC16(16), ACC16(32), ACC16(48)
+      : SS_DESC);
+}
+
 #undef ACC4
 #undef ACC16
 #undef A_DESC
+#undef SS_DESC
 
 // mbarriers and bulk copies: tc:: (tensor_core.cuh)
 
@@ -419,6 +528,209 @@ cudaError_t launch(const int* indptr, const int* indices,
   return cudaGetLastError();
 }
 
+// The warp-specialised build (bf16 B, rows 16-byte aligned), with C
+// consumers.  Block x owns unit x / ncol (block row row_order[unit /
+// subs], its sub-tile unit % subs) and the TN = C x COLS columns of column
+// tile x % ncol, as the register build's blocks do.  Step t sits in ring
+// stage t % S.
+//   - Producer (warpgroup 0): waits until stage t is free (its empty
+//     barrier: one arrival from each consumer), arrives on the stage's
+//     full barrier expecting the planes' bytes, bulk-copies the step's
+//     planes into the stage, and copies the consumers' B tiles by cp.async
+//     into the swizzled layout (rows >= k and columns >= n zero-filled),
+//     each thread arriving on the full barrier when its copies land.
+//   - Consumers (warpgroups 1..C): each waits for step t's stage, issues
+//     its products (its B^T tile and the A^T planes, both by descriptor)
+//     into a fresh accumulator, then waits for step t - 1's products, adds
+//     them into its sums and frees their stage: one step's products run
+//     while the last step's are added and the next stage lands.  The
+//     products and their order are the register build's, so the sums are
+//     the same bits.  Then each stores its sums (zeros for an empty block
+//     row).
+template <int RT, int C>
+__global__ void __launch_bounds__(WsGeo<RT, C>::THREADS, 1)
+bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+              const int* __restrict__ row_order,
+              const uint8_t* __restrict__ planes,
+              const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
+              int m, int k, int n, int bh, int bw, int ncol) {
+  using G = WsGeo<RT, C>;
+  constexpr int S = G::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - tc::smem_addr(smem_raw) % 1024) % 1024);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * G::STAGE);
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x;
+  const int subs = bh / RT;
+  const int unit = blockIdx.x / ncol;
+  const int br = row_order[unit / subs], sub = unit % subs;
+  const int c0 = (blockIdx.x % ncol) * G::TN;
+  const int j0 = indptr[br];
+  const int kq = bw / KC;
+  const int steps = (indptr[br + 1] - j0) * kq;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      tc::mbar_init(&full[s], 1 + 128);  // the expect_tx arrival, 128 copiers'
+      tc::mbar_init(&empty[s], C);
+    }
+    tc::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+#pragma unroll 1
+    for (int t = 0; t < steps; ++t) {
+      const int st = t % S;
+      const int j = j0 + t / kq, q = t % kq;
+      if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);
+      uint8_t* stage = smem + st * G::STAGE;
+      if (tid == 0) {
+        tc::mbar_expect_tx(&full[st], G::A_BYTES);
+        tc::bulk_copy(
+            stage,
+            planes + ((int64_t)(j * subs + sub) * kq + q) * G::A_BYTES,
+            G::A_BYTES, &full[st]);
+      }
+      // consumer w's KC x COLS tile: row r's 16-byte chunk c at chunk
+      // c ^ (r % 8)
+      const int64_t krow0 = (int64_t)indices[j] * bw + q * KC;
+      const int ch = tid % 8;
+#pragma unroll
+      for (int w = 0; w < C; ++w) {
+        uint8_t* bs = stage + G::A_BYTES + w * G::B_BYTES;
+        const int col = c0 + w * COLS + ch * 8;
+#pragma unroll
+        for (int r = tid / 8; r < KC; r += 16) {
+          const int64_t krow = krow0 + r;
+          const bool ok = krow < k && col < n;
+          tc::cp_async16(bs + r * 128 + ((ch ^ (r % 8)) << 4),
+                         ok ? b + krow * n + col : b, ok ? 16 : 0);
+        }
+      }
+      tc::cp_async_mbar_arrive_noinc(&full[st]);
+    }
+    return;
+  }
+
+  // consumer wg
+  const int wg = tid / 128 - PRODUCER_WARPGROUPS;
+  const int ctid = tid % 128;
+  const int warp = ctid / 32, lane = ctid % 32;
+  const int gid = lane / 4, t4 = lane % 4;
+  // acc: the sums, f32, rounded to nearest; part: one step's products,
+  // wgmma's accumulator, started afresh each step
+  float acc[G::ACC], part[G::ACC];
+#pragma unroll
+  for (int i = 0; i < G::ACC; ++i) acc[i] = part[i] = 0.f;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t) {
+    const int st = t % S;
+    tc::mbar_wait(&full[st], (t / S) & 1);
+    tc::fence_proxy_async();  // B landed through cp.async, wgmma reads it
+    const uint32_t a_base = tc::smem_addr(smem + st * G::STAGE);
+    const uint32_t b_base = a_base + G::A_BYTES + wg * G::B_BYTES;
+    fence_acc(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < TERMS; ++i)
+        wgmma_ss<RT>(part, sw128_desc(b_base + kk * 16 * 128),
+                     sw128_desc(a_base + i * G::PLANE_BYTES + kk * 32),
+                     kk + i > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(part);
+    if (ctid == 0) tc::mbar_arrive(&empty[st]);  // the stage is free
+#pragma unroll
+    for (int i = 0; i < G::ACC; ++i) acc[i] += part[i];
+  }
+
+  // acc[4i + 2h + e]: output column c0 + 64·wg + 16·warp + gid + 8h, row
+  // 8i + 2·t4 + e of the sub-tile (as the register build stores)
+  const int64_t row0 = (int64_t)br * bh + sub * RT;
+  const int col = c0 + wg * COLS + warp * 16 + gid;
+#pragma unroll
+  for (int r = 0; r < RT / 8; ++r)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int64_t row = row0 + 8 * r + 2 * t4 + e;
+      if (row >= m) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (col + 8 * h < n)
+          out[row * n + col + 8 * h] = acc[4 * r + 2 * h + e];
+    }
+}
+
+template <int RT, int C>
+cudaError_t launch_ws_c(const int* indptr, const int* indices,
+                        const int* row_order, const uint8_t* planes,
+                        const __nv_bfloat16* b, float* out,
+                        int num_block_rows, int m, int k, int n, int bh,
+                        int bw, cudaStream_t stream) {
+  using G = WsGeo<RT, C>;
+  auto kernel = bsr_ws_kernel<RT, C>;
+  // the kernel's shared-memory limit is raised once on each device, as
+  // the register build's
+  static std::atomic<unsigned long long> raised{0};
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0;
+  if (!(raised.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (err != cudaSuccess) return err;
+    raised.fetch_or(bit, std::memory_order_relaxed);
+  }
+  const int ncol = (n + G::TN - 1) / G::TN;
+  const long long grid = (long long)num_block_rows * (bh / RT) * ncol;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, G::THREADS, G::SMEM, stream>>>(
+      indptr, indices, row_order, planes, b, out, m, k, n, bh, bw, ncol);
+  return cudaGetLastError();
+}
+
+// the SMs of the current device, read once a device (0 with the error)
+int sm_count(cudaError_t* err) {
+  static std::atomic<int> sms[64];
+  int device;
+  *err = cudaGetDevice(&device);
+  if (*err != cudaSuccess) return 0;
+  int count = device < 64 ? sms[device].load(std::memory_order_relaxed) : 0;
+  if (count) return count;
+  *err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                device);
+  if (*err != cudaSuccess) return 0;
+  if (device < 64) sms[device].store(count, std::memory_order_relaxed);
+  return count;
+}
+
+// two consumers on 2·COLS-column tiles where B is wider than COLS and
+// their grid fills the SMs WS_WAVES times, else one
+template <int RT>
+cudaError_t launch_ws(const int* indptr, const int* indices,
+                      const int* row_order, const uint8_t* planes,
+                      const void* b, float* out, int num_block_rows, int m,
+                      int k, int n, int bh, int bw, cudaStream_t stream) {
+  cudaError_t err;
+  const int sms = sm_count(&err);
+  if (!sms) return err;
+  const __nv_bfloat16* bt = static_cast<const __nv_bfloat16*>(b);
+  constexpr int TN2 = COLS * CONSUMER_WARPGROUPS;
+  if (n > COLS && (long long)num_block_rows * (bh / RT) *
+                          ((n + TN2 - 1) / TN2) >=
+                      (long long)WS_WAVES * sms)
+    return launch_ws_c<RT, CONSUMER_WARPGROUPS>(indptr, indices, row_order,
+                                                planes, bt, out,
+                                                num_block_rows, m, k, n, bh,
+                                                bw, stream);
+  return launch_ws_c<RT, 1>(indptr, indices, row_order, planes, bt, out,
+                            num_block_rows, m, k, n, bh, bw, stream);
+}
+
 template <int RT>
 cudaError_t launch_rt(const int* indptr, const int* indices,
                       const int* row_order, const uint8_t* planes,
@@ -428,7 +740,7 @@ cudaError_t launch_rt(const int* indptr, const int* indices,
 #define K6_ARGS indptr, indices, row_order, planes, b, out, num_block_rows, \
                 m, k, n, bh, bw, s
   if (b_bf16)
-    return b_vec ? launch<RT, __nv_bfloat16, true>(K6_ARGS)
+    return b_vec ? launch_ws<RT>(K6_ARGS)
                  : launch<RT, __nv_bfloat16, false>(K6_ARGS);
   return b_vec ? launch<RT, float, true>(K6_ARGS)
                : launch<RT, float, false>(K6_ARGS);
@@ -444,8 +756,9 @@ extern "C" {
 // the blocks' bf16 term planes in the kernel's layout (bsr_spmm.py::
 // term_planes, 16-byte aligned) and a row-major (k, n) f32 or bf16 B, on
 // `stream`.  b_vec asks for the cp.async staging of B, which needs 16-byte
-// aligned rows.  Returns cudaGetLastError(), or cudaErrorInvalidValue for
-// what the kernel does not take.
+// aligned rows; a bf16 B so staged takes the warp-specialised build.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what the kernel
+// does not take.
 int bsr_block_spmm(const void* indptr, const void* indices,
                    const void* row_order, const void* planes, const void* b,
                    int b_bf16, int b_vec, void* out, int num_block_rows,

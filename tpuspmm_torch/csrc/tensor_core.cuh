@@ -144,6 +144,27 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
       : "memory");
 }
 
+// one arrival on this CTA's barrier (release at CTA scope)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before it
+// has landed; .noinc: the barrier's count includes these arrivals
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// order this thread's view of shared memory written through the generic
+// proxy (cp.async, stores) before its asynchronous-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wait until the barrier's phase of this parity has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(

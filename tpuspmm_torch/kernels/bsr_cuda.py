@@ -2,17 +2,22 @@
 (csrc/bsr_spmm.cu, ``bsr_block_spmm``: wgmma over bf16 term planes).
 
 Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
-here runs when the module is imported.
+here runs when the module is imported.  Which build serves a B is a
+function of its dtype, width and alignment (``warp_specialised``): a bf16
+B with 16-byte aligned rows takes the warp-specialised build; a binding
+that takes it records the span ``tpuspmm_torch.bsr.bind_ws``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import sys
 
 import torch
 
 from tpuspmm_torch.kernels import cuda_build
+from tpuspmm_torch.utils import profiling
 
 ENTRY = "bsr_block_spmm"
 # the source's constants (a CPU test holds them equal): block columns a
@@ -24,6 +29,15 @@ K_CHUNK = 64
 TERMS = 3
 ROW_TILES = (128, 32, 8)
 COLUMN_TILE = 64
+# the warp-specialised build's: producer and consumer warpgroups at most
+# (each consumer on COLUMN_TILE columns), its ring's stages at most, and
+# the waves of two-consumer blocks a grid must fill to take them
+# (``ws_consumers``)
+PRODUCER_WARPGROUPS = 1
+CONSUMER_WARPGROUPS = 2
+WS_STAGES = 4
+WS_WAVES = 2
+BIND_WS_SPAN = "tpuspmm_torch.bsr.bind_ws"
 
 
 def row_tile(bh: int) -> int:
@@ -36,6 +50,26 @@ def planes_shape(nblocks: int, bh: int, bw: int) -> tuple:
     (block, row sub-tile, k-step, term, sub-tile row, 64 block columns)."""
     rt = row_tile(bh)
     return (nblocks, bh // rt, bw // K_CHUNK, TERMS, rt, K_CHUNK)
+
+
+def warp_specialised(dtype, n: int, aligned: bool = True) -> bool:
+    """Whether K6 serves a B of this dtype and width n by the
+    warp-specialised build: bf16 with 16-byte aligned rows (n % 8 == 0 and
+    its data ``aligned``); f32 B and unaligned bf16 B keep the register
+    builds."""
+    return dtype == torch.bfloat16 and aligned and n * 2 % 16 == 0
+
+
+def ws_consumers(units: int, n: int, sms: int) -> int:
+    """Consumer warpgroups of the warp-specialised build (the source's
+    ``launch_ws``) for ``units`` row sub-tiles, B of width n and ``sms``
+    SMs: two, on a 2·COLUMN_TILE-column tile, where B is wider than one
+    tile and those tiles fill the SMs WS_WAVES times; else one, which
+    halves a heavy block row's products a step."""
+    wide = COLUMN_TILE * CONSUMER_WARPGROUPS
+    if n > COLUMN_TILE and units * -(-n // wide) >= WS_WAVES * sms:
+        return CONSUMER_WARPGROUPS
+    return 1
 
 
 def vector_staging(b: torch.Tensor) -> bool:
@@ -102,7 +136,9 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
     device) for B of b's shape, dtype and device: C (m, n) f32;
     ``counter.launches`` counts its launches.  Checks the arrays once,
     here, and raises on what the kernel does not take; each launch takes
-    the B staging build its B's alignment allows (``vector_staging``)."""
+    the build its B allows (``vector_staging``, ``warp_specialised``); a
+    binding for a B that takes the warp-specialised build is the span
+    ``tpuspmm_torch.bsr.bind_ws``."""
     num_block_rows, bh, bw = _checked(indptr, indices, row_order, planes, b,
                                       m, block_size)
     k, n = (int(s) for s in b.shape)
@@ -116,9 +152,11 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
         vector = int(rows_aligned and b_ptr % 16 == 0)  # vector_staging(b)
         return (*head, b_ptr, b_bf16, vector, out_ptr, *tail, stream)
 
-    return cuda_build.Launch(sys.modules[__name__], ENTRY,
-                             "bsr_spmm_error_string", ENTRY, b, m, args, keep,
-                             counter)
+    with (profiling.span(BIND_WS_SPAN) if warp_specialised(b.dtype, n)
+          else contextlib.nullcontext()):
+        return cuda_build.Launch(sys.modules[__name__], ENTRY,
+                                 "bsr_spmm_error_string", ENTRY, b, m, args,
+                                 keep, counter)
 
 
 def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,
