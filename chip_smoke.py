@@ -250,6 +250,14 @@ Prints one JSON object per phase:
    route's modelled µs beside its measured ``ms`` and ``device_ms`` (each
    pinned by the row, served and gated), JAX's order's route and the
    chosen route's regret (reported, not required);
+10e. the expert layer (``moe_phase``): one DeepSeek-V3 MoE layer at its
+   published widths through ``tpuspmm_torch.moe``, 131,072 tokens routed
+   over 256 experts, held experts 0-7 and the shared expert: per draw the
+   experts' token counts, handle builds, warp-specialised binds (every
+   build must be one: the layer pads each slab to a multiple of 8) and
+   wall times; one profiled call's spans and K6 launches by kernel; the
+   layer against its plain reference (TF32 off) with bf16 and f32 tokens,
+   each with the control (bf16 expert weights) missing the limits;
 11. the kernels line (all seven kernels and the stream kernel, with the
    least time the card could take for the work, ``bound_ms``, the library
    call's time, the tuned window's launches, ``tuned_launches``, the
@@ -479,6 +487,184 @@ def k6_parent_equal(parent: str, outputs: dict) -> dict:
     theirs = torch.load(out)
     return {key: bool(torch.equal(theirs[key], got))
             for key, (_, _, got) in outputs.items()}
+
+
+# phase 10e: one MoE layer of the DeepSeek-V3 configuration at its
+# published widths, for one EP32 prefill step (32 chips' 4096-token chunks)
+MOE_CONFIG = "spmm_bench/configs/dsv3_ep32_b128.json"
+MOE_TOKENS = 32 * 4096
+MOE_CHUNK = 4096
+# the configuration's first MoE layer (after first_k_dense_replace)
+MOE_LAYER = 3
+MOE_SEED = 2100000021
+MOE_DRAWS = 3
+# f32 tokens: max |out - ref| / max |ref| (the cell's limit: each product
+# is K6 at f32 A); bf16 tokens: ||out - ref|| / ||ref||, since h rounds to
+# bf16 between the products in both and a few land a bf16 step apart, and
+# the largest gap at a looser limit, between one seed's readings of the
+# layer (1.30e-3) and the control (4.58e-3) (tests/test_torch_moe.py gives
+# the reasons)
+MOE_LIMIT = 1e-5
+MOE_NORM_LIMIT = 1e-3
+MOE_BF16_MAX_LIMIT = 2.5e-3
+
+
+def moe_phase() -> None:
+    """One MoE layer at published widths: held experts 0-7 and the shared
+    expert of layer MOE_LAYER as ``pruned_moe`` draws them from MOE_SEED,
+    a seeded router over all 256 experts and MOE_TOKENS tokens, this
+    chip's shared part on its first MOE_CHUNK.  Per draw of bf16 tokens:
+    the per-expert token counts, the first call's and a repeat's wall
+    time, the handle builds and warp-specialised binds the first made (the
+    builds that were not warp-specialised took K6's register build, and
+    there must be none); one profiled call's spans and K6 launches by
+    kernel.  Then the layer against the reference on the card (bf16 and
+    f32 tokens), each with the control, the reference on bf16-rounded
+    expert weights, which must miss the limits.  Emits ``moe_draws``,
+    ``moe_profiled`` and ``moe_checks``."""
+    from spmm_bench.generators import pruned_moe
+    from spmm_bench.models import deepseek_v3_moe as ref
+    from tpuspmm_torch import BSR, Expert, Routing, moe
+    from tpuspmm_torch.ops.moe import TOKENS_COUNTER
+    from tpuspmm_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    with open(os.path.join(REPO, MOE_CONFIG)) as f:
+        config = json.load(f)
+    hidden = config["hidden_size"]
+    n_experts = config["published"]["n_routed_experts"]
+    prefix = f"layer{MOE_LAYER}."
+    ops = [op for op in pruned_moe.build(config, MOE_SEED, dev, REPO)
+           if op.name.startswith(prefix)]
+
+    def held(dtype=None):
+        """{id: weights} and the shared expert's: BSR containers, or
+        dense tensors rounded to ``dtype`` for the reference."""
+        def one(op):
+            if dtype is None:
+                values = np.ascontiguousarray(op.values.cpu().numpy())
+                return BSR(indptr=op.indptr.cpu().numpy().astype(np.int32),
+                           indices=op.indices.cpu().numpy().astype(np.int32),
+                           blocks=values, shape=tuple(op.shape),
+                           block_size=tuple(op.block), nnz=int(values.size))
+            return ref.dense(op.shape, op.block, op.indptr, op.indices,
+                             op.values).to(dtype).float()
+        ws = [one(op) for op in ops]
+        groups = [ws[i:i + 3] for i in range(0, len(ws), 3)]
+        return dict(enumerate(groups[:-1])), groups[-1]
+
+    experts, shared = held()
+    experts = {e: Expert(*w) for e, w in experts.items()}
+    shared = Expert(*shared)
+    g = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    router = torch.randn((n_experts, hidden), generator=g,
+                         device=dev) / hidden ** 0.5
+    bias = torch.randn(n_experts, generator=g, device=dev) * 1e-3
+    routing = Routing.from_config(config)
+    own = slice(0, MOE_CHUNK)
+
+    def layer(x):
+        return moe(x, router, bias, experts, routing, shared, own=own)
+
+    def timed(x):
+        before = profiling.snapshot()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = layer(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        after = profiling.snapshot()
+        rose = {k: after[k][0] - before.get(k, (0, 0.0))[0] for k in after
+                if after[k][0] != before.get(k, (0, 0.0))[0]}
+        return out, seconds, rose
+
+    def tokens(draw, dtype):
+        gx = torch.Generator(device=dev).manual_seed(MOE_SEED + 1 + draw)
+        return (torch.randn((MOE_TOKENS, hidden), generator=gx, device=dev)
+                * 0.05).to(dtype)
+
+    draws = []
+    for draw in range(MOE_DRAWS):
+        x = tokens(draw, torch.bfloat16)
+        chosen, _ = ref.route(x, router, bias, config)
+        loads = torch.bincount(chosen.flatten(), minlength=n_experts)
+        widths = loads[:len(experts)].tolist()
+        _, first_s, built = timed(x)
+        _, repeat_s, again = timed(x)
+        builds = built.get("tpuspmm_torch.served.build", 0)
+        bind_ws = built.get("tpuspmm_torch.bsr.bind_ws", 0)
+        draws.append({
+            "expert_tokens": widths,
+            "load_min_max_of_256": [int(loads.min()), int(loads.max())],
+            "first_call_s": first_s, "repeat_call_s": repeat_s,
+            "first_builds": builds, "first_bind_ws": bind_ws,
+            "repeat_builds": again.get("tpuspmm_torch.served.build", 0),
+            "tokens_counted": again.get(TOKENS_COUNTER, 0),
+            "k6_calls": 3 * (sum(1 for n in widths if n) + 1),
+            "register_builds": builds - bind_ws})
+        check(builds == bind_ws,
+              f"every handle the layer built is warp-specialised ({draw})")
+        check(again.get(TOKENS_COUNTER, 0) == sum(widths),
+              f"the tokens counter adds the held experts' tokens ({draw})")
+        check(again.get("tpuspmm_torch.served.build", 0) == 0,
+              f"a repeat of the same widths builds no handle ({draw})")
+        del x
+    emit("moe_draws", tokens=MOE_TOKENS, own_tokens=MOE_CHUNK,
+         layer=MOE_LAYER, seed=MOE_SEED, draws=draws)
+
+    # one profiled call of the last draw: the spans and K6's launches
+    x = tokens(MOE_DRAWS - 1, torch.bfloat16)
+    from torch.profiler import ProfilerActivity, profile
+
+    before = profiling.snapshot()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        layer(x)
+        torch.cuda.synchronize()
+    after = profiling.snapshot()
+    spans = {k: [after[k][0] - before.get(k, (0, 0.0))[0],
+                 after[k][1] - before.get(k, (0, 0.0))[1]]
+             for k in after if k.startswith("tpuspmm_torch.")
+             and after[k][0] != before.get(k, (0, 0.0))[0]}
+    kernels = {ev.key: {"count": ev.count,
+                        "device_ms": ev.device_time_total / 1e3}
+               for ev in prof.key_averages() if "bsr" in ev.key
+               and "kernel" in ev.key}
+    del prof
+    emit("moe_profiled", spans=spans, k6_kernels=kernels)
+
+    # the layer against the reference, bf16 tokens (the last draw) then f32
+    checks = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = tokens(MOE_DRAWS - 1, dtype)
+        out = layer(x)
+        dense_experts, dense_shared = held(torch.float32)
+        want = ref.moe_share(x, router, bias, dense_experts, config,
+                             dense_shared, own=own)
+        gap = (out - want)
+        got = {"max_rel_err": float(gap.abs().max() / want.abs().max()),
+               "norm_rel_err": float(gap.norm() / want.norm())}
+        del out, gap, dense_experts, dense_shared
+        bf_experts, bf_shared = held(torch.bfloat16)
+        control = ref.moe_share(x, router, bias, bf_experts, config,
+                                bf_shared, own=own)
+        gap = control - want
+        ctl = {"max_rel_err": float(gap.abs().max() / want.abs().max()),
+               "norm_rel_err": float(gap.norm() / want.norm())}
+        limits = ({"norm_rel_err": MOE_NORM_LIMIT,
+                   "max_rel_err": MOE_BF16_MAX_LIMIT}
+                  if dtype == torch.bfloat16 else {"max_rel_err": MOE_LIMIT})
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        checks[tag] = {"layer": got, "control": ctl, "limits": limits}
+        for key, limit in limits.items():
+            check(got[key] <= limit,
+                  f"moe {tag} {key} {got[key]} <= {limit}")
+            check(ctl[key] > limit,
+                  f"moe {tag} control {key} {ctl[key]} misses {limit}")
+        del x, want, control, gap, bf_experts, bf_shared
+        torch.cuda.empty_cache()
+    emit("moe_checks", checks=checks,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def emit(phase: str, **fields) -> None:
@@ -2594,6 +2780,9 @@ def main() -> int:
 
     # ---- 10d. the dispatcher's routing row ------------------------------
     routing_row_phase(gpu, card)
+
+    # ---- 10e. the expert layer at published widths -----------------------
+    moe_phase()
 
     # ---- 11. kernels line, card, ok --------------------------------------
     kernels = {  # name: (entry, source, TPU kernel body it replaces)

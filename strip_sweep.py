@@ -36,7 +36,11 @@ instead of all, the ring's copies alone, and the step's products alone on
 stages filled once; the last two patch the loop that f32 B and unaligned
 bf16 B run) on BSR_CASES: chip_smoke.py's pruned weights, and an
 Olmo-Hybrid-7B gate and down weight as the benchmark draws them, at w512
-and w16 (``--cases olmo_gate,olmo_down`` for those alone).  Each
+and w16 (``--cases olmo_gate,olmo_down`` for those alone), and a
+DeepSeek-V3 expert's gate [2048, 7168] and down [7168, 2048] weight at
+w4096 (the gate also at w4093, a routed width that takes the register
+build) and its dense layers' gate [18432, 7168] and down [7168, 18432] at
+w4096 (``--cases dsv3_gate,dsv3_down,dsv3_dense_gate,dsv3_dense_down``).  Each
 variant runs through ``spmm_bsr_stream`` with the variant's library, is
 held against the plain version (K6_TOL, 2e-6·max|C|, chip_smoke.py's
 limit for K6, which the three-product control must miss with f32 B) and
@@ -412,19 +416,27 @@ BSR_VARIANTS = {
                    "    tc::cp_async_wait<0>();\n"
                    "    if (t < S - 1) tc::mbar_wait(&bar[st], 0);")],
 }
-BSR_CONTROLS = ("products3", "a_planes_1k", "copy_only", "math_only")
+BSR_CONTROLS = ("products3", "a_planes_1k", "copy_only", "math_only",
+                "ws_copy_only", "ws_math_only")
 # (weight, rows, cols, block, block density, seed, B width): chip_smoke.py's
 # pruned weights (a) and (b), B drawn as there; and an Olmo-Hybrid-7B gate
-# and down weight as spmm_bench's pruned_ffn generator draws them (OLMO),
-# ROTATE distinct weights a case launched in turn, so that one call's
-# planes are not in L2 from the call before, as in the benchmark
+# and down weight and a DeepSeek-V3 expert's gate and down weight at a
+# 4096-token chunk, as spmm_bench's pruned_ffn generator draws them
+# (DRAWN), ROTATE distinct weights a case launched in turn, so that one
+# call's planes are not in L2 from the call before, as in the benchmark
 BSR_CASES = (("a", 4096, 4096, (128, 128), 0.1, 0, 512),
              ("b", 4096, 4096, (8, 128), 0.02, 1, 512),
              ("olmo_gate", 11008, 3840, (128, 128), 0.1, 0, 512),
              ("olmo_gate", 11008, 3840, (128, 128), 0.1, 0, 16),
              ("olmo_down", 3840, 11008, (128, 128), 0.1, 0, 512),
-             ("olmo_down", 3840, 11008, (128, 128), 0.1, 0, 16))
-OLMO = ("olmo_gate", "olmo_down")
+             ("olmo_down", 3840, 11008, (128, 128), 0.1, 0, 16),
+             ("dsv3_gate", 2048, 7168, (128, 128), 0.1, 0, 4096),
+             ("dsv3_gate", 2048, 7168, (128, 128), 0.1, 0, 4093),
+             ("dsv3_down", 7168, 2048, (128, 128), 0.1, 0, 4096),
+             ("dsv3_dense_gate", 18432, 7168, (128, 128), 0.1, 0, 4096),
+             ("dsv3_dense_down", 7168, 18432, (128, 128), 0.1, 0, 4096))
+DRAWN = ("olmo_gate", "olmo_down", "dsv3_gate", "dsv3_down",
+         "dsv3_dense_gate", "dsv3_dense_down")
 ROTATE = 4
 # (corpus dir, B width or None for the on-disk width, B dtypes)
 CASES = (("large_25605", 256, ("f32", "bf16")),
@@ -676,11 +688,11 @@ def chunk_sweep(names: list) -> int:
 
 def bsr_weights(wname, rows, cols, block, density, seed) -> list:
     """The BSR weights of a BSR_CASES case: chip_smoke.py's weight, or
-    ROTATE Olmo weights drawn as spmm_bench's pruned_ffn generator draws
-    them (one group of the shape, at block sparsity 1 - density)."""
+    ROTATE weights drawn as spmm_bench's pruned_ffn generator draws them
+    (one group of the shape, at block sparsity 1 - density)."""
     from tpuspmm_torch.formats import BSR
 
-    if wname not in OLMO:
+    if wname not in DRAWN:
         return [BSR.random_blocks(rows, cols, block, density, seed)]
     from spmm_bench.generators import pruned_ffn
     from spmm_bench.operands import generator

@@ -24,6 +24,8 @@ is served by it::
 (matrix, width, B dtype) and serves the fastest that passes the gate;
 ``spmv``, ``spmm_batched`` (a stack of B in one launch), ``spmm_transpose``
 and ``spmm_fn`` (a differentiable ``B -> A @ B``) complete the API.
+``moe`` is one chip's share of an expert-parallel MoE layer (DeepSeek-V3's
+routing), each expert's products served by ``spmm`` (``ops/moe.py``).
 
 The engines: ``python -m tpuspmm_torch.cli --csr --coo --bsr --ell -d DIR``,
 ``--auto`` to run the format the selection picks, ``--tuned`` for the
@@ -34,8 +36,9 @@ from tpuspmm_torch.config import Config, default_config
 from tpuspmm_torch.formats import BSR, CSC, CSR, COO, ELL, DenseMatrix
 from tpuspmm_torch.ops.api import (spmm, spmv, spmm_batched, spmm_transpose,
                                    spmm_fn)
+from tpuspmm_torch.ops.moe import Expert, Routing, moe
 from tpuspmm_torch.engine.registry import get_engine, FORMATS
 
 __all__ = ["Config", "default_config", "CSR", "CSC", "COO", "BSR", "ELL",
            "DenseMatrix", "spmm", "spmv", "spmm_batched", "spmm_transpose",
-           "spmm_fn", "get_engine", "FORMATS"]
+           "spmm_fn", "moe", "Expert", "Routing", "get_engine", "FORMATS"]

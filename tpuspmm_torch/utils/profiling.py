@@ -25,7 +25,8 @@ recording (``torch.autograd.profiler._is_profiler_enabled``, false in a
 profiler's warm-up steps): with none a call reads that flag and enters
 nothing.  The spans of a served handle's build (``dispatch.served``) and
 of K6's term planes (``bsr_spmm.term_planes``) run once an operand and
-are always entered.
+are always entered.  ``count(name, n)`` adds to a counter of the same
+table.
 """
 
 from __future__ import annotations
@@ -91,19 +92,29 @@ class span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        ns = time.perf_counter_ns() - self._t0
-        try:
-            table = _LOCAL.table
-        except AttributeError:
-            table = _thread_table()
-        entry = table.get(self.name)
-        if entry is None:
-            table[self.name] = [1, ns]
-        else:
-            entry[0] += 1
-            entry[1] += ns
+        _add(self.name, 1, time.perf_counter_ns() - self._t0)
         self._range.__exit__(exc_type, exc, tb)
         return False
+
+
+def _add(name: str, n: int, ns: int) -> None:
+    try:
+        table = _LOCAL.table
+    except AttributeError:
+        table = _thread_table()
+    entry = table.get(name)
+    if entry is None:
+        table[name] = [n, ns]
+    else:
+        entry[0] += n
+        entry[1] += ns
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to ``name``'s count in this thread's table, with no
+    time and no range in the trace: a counter beside the spans (the
+    tokens an expert layer's held experts served, ``ops/moe.py``)."""
+    _add(name, n, 0)
 
 
 def snapshot() -> dict:
