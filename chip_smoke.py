@@ -87,12 +87,18 @@ Prints one JSON object per phase:
    (16-byte cp.async, and plain loads for rows not 16-byte aligned) must
    be among those held, for f32 and bf16 B (with bf16 B the first is the
    warp-specialised build, whose consumers ``bsr_cuda.ws_consumers``
-   gives and the records carry).  With ``--k6-parent``, every bf16-B
-   output of the phase equals the parent's bit for bit.  Then K6's times
-   (bf16 and f32 B) on an Olmo-Hybrid-7B gate and down weight as the
-   benchmark draws them (``strip_sweep.bsr_weights``: ROTATE weights
-   launched in turn, so a call's planes are not in L2 from the last), at
-   w512 and w16, each held to its plain version;
+   gives and the records carry, with its tiles and grid).  Then K6's
+   times (bf16 and f32 B) on the weights of ``strip_sweep.BSR_CASES`` as
+   the benchmark draws them (``strip_sweep.bsr_weights``: ROTATE weights
+   launched in turn, so a call's planes are not in L2 from the last):
+   Olmo-Hybrid-7B's gate and down at w512 and w16, DeepSeek-V3's expert
+   gate and down and dense gate and down at w4096 (the expert gate also at
+   w4093), and the expert gate and down at the routed width 3392
+   (K6_ROUTED), each held to its plain version, each binding's
+   ``tpuspmm_torch.bsr.persistent`` count equal to its busiest block's
+   tiles where the warp-specialised grid is persistent and to none
+   elsewhere.  With ``--k6-parent``, every bf16-B output of the phase
+   equals the parent's bit for bit;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
    runs: large_25605 w256 in f32 and bf16, one record in bench.py's shape;
    then the corpus dirs large_15120, large_21074, medium_2048 and
@@ -331,6 +337,11 @@ K6_SHAPES = ((512, 1024, (16, 256), 0.2, 2, 200),
              (512, 512, (256, 128), 0.5, 4, 130),
              (1024, 1024, (512, 128), 0.5, 6, 256),
              (256, 512, (8, 128), 0.0, 5, 64))
+# DeepSeek-V3's expert gate and down weights (strip_sweep.BSR_CASES' draw)
+# at a routed width, 3392: 27 column tiles of 128, so 432 and 1,512 tiles,
+# no multiple of 132 SMs
+K6_ROUTED = (("dsv3_gate", 2048, 7168, (128, 128), 0.1, 0, 3392),
+             ("dsv3_down", 7168, 2048, (128, 128), 0.1, 0, 3392))
 # K6's timed operands: (weight, B width); B is pb32's draw at that width
 K6_OPERANDS = (("a", 512), ("b", 512), ("c", 512), ("a", 1024))
 PRUNED_WIDTH = 512
@@ -1855,16 +1866,20 @@ def main() -> int:
         staged.add((str(b.dtype), bsr_cuda.vector_staging(b)))
         return got, err, scale, control
 
-    def k6_consumers(kw, b):
-        """The warp-specialised build's consumer warpgroups for (kw, b),
-        or None where another build takes b."""
+    def k6_ws(kw, b) -> dict:
+        """The warp-specialised build's consumer warpgroups, tiles and
+        grid for (kw, b) (the grid below the tiles: persistent), or Nones
+        where another build takes b."""
         n = int(b.shape[1])
         if not (bsr_cuda.warp_specialised(b.dtype, n)
                 and bsr_cuda.vector_staging(b)):
-            return None
+            return {"ws_consumers": None, "ws_tiles": None, "ws_grid": None}
         bh = kw.block_size[0]
-        return bsr_cuda.ws_consumers(
-            kw.num_block_rows * (bh // bsr_cuda.row_tile(bh)), n, sms)
+        rt = bsr_cuda.row_tile(bh)
+        units = kw.num_block_rows * (bh // rt)
+        return {"ws_consumers": bsr_cuda.ws_consumers(units, n, sms),
+                "ws_tiles": bsr_cuda.ws_tiles(units, n, sms),
+                "ws_grid": bsr_cuda.ws_grid(units, n, sms, rt)}
 
     def k6_floors(kw, width: int) -> dict:
         """K6's tensor-core products at the bf16 rate (six a k-step with
@@ -1914,7 +1929,7 @@ def main() -> int:
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
                         "vector_staging": bsr_cuda.vector_staging(b),
-                        "ws_consumers": k6_consumers(kw, b),
+                        **k6_ws(kw, b),
                         "ms": cuda_time_ms(lambda: k6(kw, b)),
                         "device_ms": device_ms(lambda: k6(kw, b)),
                         "plain_ms": cuda_time_ms(
@@ -1965,47 +1980,65 @@ def main() -> int:
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
                         "vector_staging": bsr_cuda.vector_staging(b),
-                        "ws_consumers": k6_consumers(w, b)}
+                        **k6_ws(w, b)}
             del got
         emit("bsr_kernel_shapes", **rec)
     # both builds that stage B were held, with f32 and bf16 B
     check(len(staged) == 4, f"K6 ran both B staging builds in both dtypes "
                             f"({sorted(staged)})")
-    if K6_PARENT:
-        same = k6_parent_equal(K6_PARENT, k6_bf16)
-        emit("bsr_kernel_vs_parent", parent=K6_PARENT, bit_equal=same)
-        check(same and all(same.values()),
-              f"K6's bf16-B outputs equal the parent's bit for bit ({same})")
-    del k6_bf16
-    # K6 on Olmo-Hybrid-7B's gate and down weights, as the benchmark draws
-    # them, ROTATE weights in turn (the device time is a launch's)
+    # K6 on Olmo-Hybrid-7B's and DeepSeek-V3's weights, as the benchmark
+    # draws them, ROTATE weights in turn (the device time is a launch's),
+    # and on DeepSeek-V3's expert weights at a routed width whose tiles are
+    # no multiple of the SMs (K6_ROUTED); each binding's count of
+    # PERSISTENT_COUNT must be its busiest block's tiles where its grid is
+    # persistent, else none
     import strip_sweep
     for wname, rows, cols, block, dens, seed, width in (
-            strip_sweep.BSR_CASES[2:]):
+            strip_sweep.BSR_CASES[2:] + K6_ROUTED):
         ws = strip_sweep.bsr_weights(wname, rows, cols, block, dens, seed)
         ob32 = torch.from_numpy((np.random.default_rng(seed).standard_normal(
             (cols, width)) * 0.05).astype(np.float32)).to(dev)
         rec = {"weight": wname, "shape": [rows, cols], "width": width,
                "nblocks": ws[0].nblocks, "weights_in_turn": len(ws),
-               "most_blocks_in_a_row": int(np.diff(ws[0].indptr).max())}
+               "most_blocks_in_a_row": int(np.diff(ws[0].indptr).max()),
+               "empty_block_rows": int((np.diff(ws[0].indptr) == 0).sum())}
         for b in (ob32.to(torch.bfloat16), ob32):
             tag = "f32" if b.dtype == torch.float32 else "bf16"
+            before = profiling.snapshot().get(
+                bsr_cuda.PERSISTENT_COUNT, (0, 0.0))[0]
             got = k6(ws[0], b)
+            counted = profiling.snapshot().get(
+                bsr_cuda.PERSISTENT_COUNT, (0, 0.0))[0] - before
+            grid = k6_ws(ws[0], b)
+            persistent = (grid["ws_grid"] is not None
+                          and grid["ws_grid"] < grid["ws_tiles"])
+            check(counted == (-(-grid["ws_tiles"] // grid["ws_grid"])
+                              if persistent else 0),
+                  f"K6 {wname} w{width} {tag}: {counted} counted as "
+                  f"{bsr_cuda.PERSISTENT_COUNT} ({grid})")
             want = bsr_spmm.bsr_spmm_plain(ws[0], b)
             err, scale = max_abs_err(got, want), float(want.abs().max())
             check(err <= K6_TOL * scale,
                   f"K6 {wname} w{width} {tag} |kernel - plain| {err} <= "
                   f"{K6_TOL}*{scale}")
+            if tag == "bf16" and K6_PARENT:
+                k6_bf16[f"{wname} w{width}"] = (ws[0], b.cpu(), got.cpu())
             del got, want
             rec[tag] = {
-                "max_abs_err": err, "max_abs_c": scale,
-                "ws_consumers": k6_consumers(ws[0], b),
+                "max_abs_err": err, "max_abs_c": scale, **grid,
+                "persistent_count": counted,
                 "ms": cuda_time_ms(lambda: [k6(w, b) for w in ws])
                 / len(ws),
                 "device_ms": device_ms(lambda: [k6(w, b) for w in ws])
                 / len(ws)}
         emit("bsr_kernel_olmo", **rec)
         del ws
+    if K6_PARENT:
+        same = k6_parent_equal(K6_PARENT, k6_bf16)
+        emit("bsr_kernel_vs_parent", parent=K6_PARENT, bit_equal=same)
+        check(same and all(same.values()),
+              f"K6's bf16-B outputs equal the parent's bit for bit ({same})")
+    del k6_bf16
     bsr_window = k6.launches
     emit("bsr_kernel_launches", bsr_stream=bsr_window)
 

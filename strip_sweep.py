@@ -7,6 +7,7 @@ Run from the repository root:
     python3 strip_sweep.py [--variants NAME,NAME,...]
     python3 strip_sweep.py --chunk [--variants NAME,NAME,...]
     python3 strip_sweep.py --bsr [--variants NAME,...] [--cases WEIGHT,...]
+        [--rounds N]
     python3 strip_sweep.py --profile-host
 
 Each variant is a copy of the source with some of its lines replaced
@@ -30,7 +31,9 @@ per kernel, and one JSON line per (case, B dtype) with each variant's ms.
 ``--bsr`` sweeps the block-streaming kernel K6 (csrc/bsr_spmm.cu):
 BSR_VARIANTS patch its source (column tile 64 or 128, ring depths, block
 rows in index order against heaviest first, B staged by plain loads
-against cp.async, and controls, which are not held to the tolerance:
+against cp.async, the warp-specialised grid persistent from 1, 2, 3 or 4
+waves of 128-row tiles or never, and controls, which are not held to the
+tolerance:
 three f32-B products instead of six, 1 KB of a step's A planes copied
 instead of all, the ring's copies alone, and the step's products alone on
 stages filled once; the last two patch the loop that f32 B and unaligned
@@ -372,11 +375,14 @@ RING_REFILL = ("    if (t + S - 1 < steps) issue(t + S - 1);\n"
               "    tc::cp_async_commit();\n")
 # the warp-specialised build: its producer's refill, its consumer's wait
 # for a stage and its products
-WS_REFILL = "      if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);"
-WS_FULL = "    tc::mbar_wait(&full[st], (t / S) & 1);"
-WS_PRODUCTS = ("#pragma unroll\n    for (int kk = 0; kk < KC / 16; ++kk)\n"
-               "#pragma unroll\n      for (int i = 0; i < TERMS; ++i)\n"
-               "        wgmma_ss")
+WS_REFILL = "        if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);"
+WS_FULL = "      tc::mbar_wait(&full[st], (t / S) & 1);"
+WS_PRODUCTS = ("#pragma unroll\n      for (int kk = 0; kk < KC / 16; ++kk)\n"
+               "#pragma unroll\n        for (int i = 0; i < TERMS; ++i)\n"
+               "          wgmma_ss")
+# the waves of 128-row tiles that make the warp-specialised grid
+# persistent, in the serving source
+PERSIST_WAVES = 3
 # name: [(text of bsr_spmm.cu, its replacement), ...]
 BSR_VARIANTS = {
     "serving": [],
@@ -397,11 +403,24 @@ BSR_VARIANTS = {
     # one column tile, or one always
     "ws_waves0": [const("WS_WAVES", 2, 0)],
     "ws_one_consumer": [const("CONSUMER_WARPGROUPS", 2, 1)],
+    # the warp-specialised grid at 128-row tiles: persistent (a block an
+    # SM walking tiles) wherever the tiles fill the SMs once, or 2, 3 or 4
+    # times; or one block a tile always
+    "ws_persistent": [const("PERSIST_WAVES", PERSIST_WAVES, 1)],
+    **{f"persist_waves{w}": [const("PERSIST_WAVES", PERSIST_WAVES, w)]
+       for w in (2, 3, 4) if w != PERSIST_WAVES},
+    "ws_no_persist": [const("PERSIST_WAVES", PERSIST_WAVES, 1 << 20)],
+    # the persistent grid's blocks taking tiles c, c + grid, ... (no
+    # reversal on odd rounds)
+    "ws_round_robin": [(
+        "base + ((r & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);",
+        "base + (int)blockIdx.x;")],
     # controls of the warp-specialised build: its copies alone (no
     # products); its products alone on the stages filled once
-    "ws_copy_only": [(WS_PRODUCTS, "    if (false)\n" + WS_PRODUCTS)],
-    "ws_math_only": [(WS_REFILL, "      if (t >= S) continue;"),
-                     (WS_FULL, "    if (t < S) tc::mbar_wait(&full[st], 0);")],
+    "ws_copy_only": [(WS_PRODUCTS, "      if (false)\n" + WS_PRODUCTS)],
+    "ws_math_only": [(WS_REFILL, "        if (t >= S) continue;"),
+                     (WS_FULL,
+                      "      if (t < S) tc::mbar_wait(&full[st], 0);")],
     # control: the ring as it is, with no products and no adds (the floor
     # of its copies)
     "copy_only": [(RING_REFILL, RING_REFILL + "    continue;\n")],
@@ -707,11 +726,12 @@ def bsr_weights(wname, rows, cols, block, density, seed) -> list:
             for indptr, indices, values in group]
 
 
-def bsr_sweep(names: list, cases=None) -> int:
+def bsr_sweep(names: list, cases=None, rounds: int = 1) -> int:
     """Build and time BSR_VARIANTS on BSR_CASES (those whose weight is in
     ``cases``, where given; see the module docstring); prints one JSON
     line per build and one per (case, B dtype).  Times are a launch's:
-    an Olmo case's graph launches its ROTATE weights in turn."""
+    an Olmo case's graph launches its ROTATE weights in turn; each is the
+    least of ``rounds`` passes over the variants and back."""
     from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm, cuda_build
     from tpuspmm_torch.utils.compare import max_abs_err
     from tpuspmm_torch.utils.timing import cuda_time_ms
@@ -769,7 +789,7 @@ def bsr_sweep(names: list, cases=None) -> int:
             torch.cuda.synchronize()
             times = {name: [] for name in libs}
             calls = {name: [] for name in libs}
-            for name in list(libs) + list(libs)[::-1]:
+            for name in (list(libs) + list(libs)[::-1]) * rounds:
                 times[name].append(cuda_time_ms(graphs[name].replay))
                 calls[name].append(cuda_time_ms(lambda: run(name)))
             rec["ms"] = {k: min(v) / len(ws) for k, v in times.items()}
@@ -803,6 +823,9 @@ def main() -> int:
     ap.add_argument("--cases", default=None,
                     help="with --bsr: comma-separated BSR_CASES weights "
                          "(default: all)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --bsr: time the variants this many times "
+                         "there and back, each the least (default 1)")
     ap.add_argument("--profile-host", action="store_true",
                     help="only profile the host side of 200 serves of "
                          "large_25605 w256 with bf16 B (cProfile)")
@@ -819,7 +842,7 @@ def main() -> int:
     names = (args.variants.split(",") if args.variants else list(variants))
     if args.bsr:
         return bsr_sweep(names, args.cases.split(",") if args.cases
-                         else None)
+                         else None, args.rounds)
     if args.chunk:
         return chunk_sweep(names)
     with ThreadPoolExecutor(len(names)) as pool:

@@ -350,7 +350,7 @@ def test_ws_constants_equal_the_source():
     memory."""
     src = _source_constants()
     for name in ("PRODUCER_WARPGROUPS", "CONSUMER_WARPGROUPS", "WS_STAGES",
-                 "WS_WAVES"):
+                 "WS_WAVES", "PERSIST_WAVES"):
         assert src[name] == getattr(bsr_cuda, name), name
     assert src["COLS"] == bsr_cuda.COLUMN_TILE
     # at least two stages fit at 128-row sub-tiles with two consumers
@@ -419,6 +419,7 @@ def test_bind_takes_the_build_and_counts_it(dtype, n, ws, monkeypatch):
     from tpuspmm_torch.utils import profiling
 
     monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
     a, _ = pair_of("b128x128")
     arrays = [torch.from_numpy(x) for x in
               (a.indptr, a.indices, bsr_spmm.block_row_order(a),
@@ -438,3 +439,99 @@ def test_bind_takes_the_build_and_counts_it(dtype, n, ws, monkeypatch):
     assert got["b_vec"] == int(n * b.element_size() % 16 == 0)
     # B's data off 16 bytes: the plain-load build, whatever the binding
     assert dict(zip(names, launch.args(4098, 8192, 0)))["b_vec"] == 0
+
+
+# (row sub-tiles, B width, SMs, row tile): DeepSeek-V3's expert gate and
+# down (16 and 56 block rows of 128), dense gate and down (144, 56) at
+# w4096 and the expert gate at the routed width 3392 (432 tiles, no
+# multiple of 132); Olmo-Hybrid-7B's gate and down (86, 30) at w512 and
+# w16; 8-row sub-tiles; and grids of a few tiles on 1-2 SMs
+SCHEDULES = [(16, 4096, 132, 128), (56, 4096, 132, 128),
+             (144, 4096, 132, 128), (16, 3392, 132, 128),
+             (86, 512, 132, 128), (30, 512, 132, 128), (86, 16, 132, 128),
+             (30, 16, 132, 128), (512, 512, 132, 8), (3, 300, 2, 128),
+             (5, 200, 1, 128), (1, 64, 1, 32)]
+
+
+@pytest.mark.parametrize("units,n,sms,rt", SCHEDULES)
+def test_ws_schedule_owns_each_tile_once(units, n, sms, rt):
+    """The warp-specialised grid's schedule (the source's ws_grid and
+    ws_tile_index): min(tiles, SMs) blocks where it is persistent, else a
+    block a tile; every (unit, column tile) owned by one block; a block's
+    r-th tile lies in the r-th round of ``grid`` consecutive tiles (units
+    in row_order's order, column tile fastest), the c-th of it on even
+    rounds and the c-th from its end on odd ones."""
+    tiles = bsr_cuda.ws_tiles(units, n, sms)
+    grid = bsr_cuda.ws_grid(units, n, sms, rt)
+    ncol = -(-n // (bsr_cuda.COLUMN_TILE
+                    * bsr_cuda.ws_consumers(units, n, sms)))
+    assert tiles == units * ncol
+    assert grid in (tiles, min(tiles, sms))
+    walks = bsr_cuda.ws_schedule(units, n, sms, rt)
+    assert len(walks) == grid
+    owned = sorted(t for walk in walks for t in walk)
+    assert owned == [divmod(x, ncol) for x in range(tiles)]
+    for c, walk in enumerate(walks):
+        xs = [u * ncol + col for u, col in walk]
+        for r, x in enumerate(xs):
+            assert x // grid == r
+            assert x % grid == (grid - 1 - c if r % 2 else c)
+    if grid == tiles:
+        assert walks == [[divmod(c, ncol)] for c in range(tiles)]
+
+
+# (row sub-tiles, B width, row tile, persistent) on 132 SMs, the cells'
+# shapes: every DeepSeek-V3 call of dsv3_ep32_b128.prefill_w4096 (expert
+# gate / up, expert down, dense gate / up, dense down) and the expert gate
+# at a routed width; Olmo-Hybrid-7B's gate and down at w512 and w16; an
+# 8-row sub-tile grid of 2,048 tiles
+ENGAGES = [(16, 4096, 128, True), (56, 4096, 128, True),
+           (144, 4096, 128, True), (56, 4096, 128, True),
+           (16, 3392, 128, True), (86, 512, 128, False),
+           (30, 512, 128, False), (86, 16, 128, False),
+           (30, 16, 128, False), (512, 512, 8, False)]
+
+
+@pytest.mark.parametrize("units,n,rt,want", ENGAGES,
+                         ids=["dsv3_gate", "dsv3_down", "dsv3_dense_gate",
+                              "dsv3_dense_down", "dsv3_gate_w3392",
+                              "olmo_gate_w512", "olmo_down_w512",
+                              "olmo_gate_w16", "olmo_down_w16", "rt8"])
+def test_persistent_grid_engages_by_shape(units, n, rt, want):
+    """The grid is persistent where its 128-row tiles fill 132 SMs
+    PERSIST_WAVES times: every DeepSeek-V3 call of the cell, no Olmo call
+    and no decode width."""
+    grid = bsr_cuda.ws_grid(units, n, 132, rt)
+    assert (grid < bsr_cuda.ws_tiles(units, n, 132)) is want
+    if want:
+        assert grid == 132
+
+
+@pytest.mark.parametrize("dtype,n,want", [(torch.bfloat16, 4096, 4),
+                                          (torch.bfloat16, 3392, 4),
+                                          (torch.bfloat16, 16, 0),
+                                          (torch.float32, 4096, 0)])
+def test_bind_counts_a_persistent_grid(dtype, n, want, monkeypatch):
+    """A binding whose warp-specialised grid is persistent adds its
+    busiest block's tiles to ``tpuspmm_torch.bsr.persistent`` once (16
+    block rows of 128 on 132 SMs: 512 tiles at w4096, 432 at w3392, 4 a
+    block at most); a w16 binding (16 tiles) and an f32-B binding add
+    nothing.  The card is stood in for, as above."""
+    from tpuspmm_torch.kernels import cuda_build
+    from tpuspmm_torch.utils import profiling
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
+    a = BSR.random_blocks(2048, 256, (128, 128), 0.5, 7)
+    arrays = [torch.from_numpy(x) for x in
+              (a.indptr, a.indices, bsr_spmm.block_row_order(a),
+               bsr_spmm.term_planes(a))]
+    b = torch.zeros(a.shape[1], n, dtype=dtype)
+
+    def count():
+        return profiling.snapshot().get(bsr_cuda.PERSISTENT_COUNT,
+                                        (0, 0.0))[0]
+
+    before = count()
+    bsr_cuda.bind(*arrays, b, a.shape[0], a.block_size)
+    assert count() - before == want

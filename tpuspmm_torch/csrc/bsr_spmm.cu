@@ -7,8 +7,10 @@
 // into block row rt[i] on that row's first block (first[i]), adding it
 // otherwise.  That relies on grid steps running in order.
 //
-// Here block (block row br, row sub-tile, column tile) owns output rows
-// [br*bh + sub*RT, +RT) and TN = 64 columns.  It walks block row br's stored
+// Here one block owns each tile (block row br, row sub-tile, column tile):
+// output rows [br*bh + sub*RT, +RT) and TN columns (64 in the register
+// builds; 64 or 128 in the warp-specialised build, 64 a consumer, where a
+// block may own many tiles in turn, below).  It walks block row br's stored
 // blocks in stored order (from indptr: the order of JAX's stable-sorted rt),
 // KC = 64 block columns a step, keeps the sums in registers and stores once:
 // no atomics, no first flag, no zero pass, the same sums on every run, and
@@ -82,6 +84,21 @@
 // their order and their fresh accumulator a step are the register build's:
 // the output is the same bits (chip_smoke.py --k6-parent).
 //
+// Where its grid of 128-row tiles fills the SMs PERSIST_WAVES times, the
+// warp-specialised build is persistent: min(tiles, SMs) blocks, each
+// owning one tile of every round of `grid` consecutive tiles, in block
+// order on even rounds and in reverse on odd ones (a static schedule: no
+// counter to reset, one owner a tile; the reversal keeps the blocks given
+// the heaviest rows of one round from getting the heaviest of the next,
+// which a plain c, c + grid, ... did, losing to the hardware's own
+// scheduling on Olmo's and DeepSeek-V3's gate weights).  Its producer runs the
+// ring straight across a tile boundary, so the next tile's stages land
+// while the consumers store the last tile's sums, and those stores drain
+// while the next tile's products run: a one-tile block pays an empty ring
+// and an epilogue with the tensor cores idle, one SM at a time.  Below 128
+// rows several blocks fit an SM and overlap each other's ends already, so
+// the grid stays one block a tile.
+//
 // What bounds it (strip_sweep.py --bsr; NVIDIA H100 80GB HBM3, 700 W;
 // one Olmo-Hybrid-7B gate weight 11008 x 3840 and one down weight
 // 3840 x 11008, 258 blocks of 128 x 128, four weights launched in turn, bf16
@@ -95,7 +112,14 @@
 // 42.4 and 21.0 / 34.5 in the same run); its products alone on staged
 // data take 31.4 / 29.1 and its copies alone 25.2 / 24.8, so the
 // consumers' wgmma chains now set the pace (a wgmma of m64n128k16 every
-// ~50 ns against the 35 ns of one SM's share of the peak).
+// ~50 ns against the 35 ns of one SM's share of the peak).  DeepSeek-V3's
+// expert weights at w4096 (gate 2048 x 7168, down 7168 x 2048; 512 and
+// 1,792 tiles of 128 x 128): one block a tile took 71.1 / 101.6 us, the
+// persistent grid 69.2 / 85.6, against its products alone 62.2 / 78.4 and
+// its copies alone 49.3 / 71.4.  The persistent grid lost where the tiles
+// fill the SMs fewer than 3 times (Olmo's gate at w512, 344 tiles: 36.3
+// against 33.0 us), and with c, c + grid, ... in place of the reversed odd
+// rounds (gate / down 73.8 / 92.8).
 //
 // Left for later: the f32-B build's producer split (its B fragments are
 // split into bf16 terms in registers, so its B cannot be staged for wgmma
@@ -103,7 +127,9 @@
 // products a consumer (two accumulators: reading one while the other's
 // group runs made ptxas serialise the wgmmas, C7514, in some builds);
 // width 16, where 86 / 30 blocks of one consumer leave most of the 132
-// SMs idle; multicast of the planes, which did not pay here.
+// SMs idle; multicast of the planes, which did not pay on a cool card but
+// may under the 700 W cap that a long run of w4096 calls holds the card
+// at (its L2 reads cost clock there).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -141,6 +167,9 @@ constexpr int PRODUCER_WARPGROUPS = 1;
 constexpr int CONSUMER_WARPGROUPS = 2;
 constexpr int WS_STAGES = 4;
 constexpr int WS_WAVES = 2;
+// the warp-specialised build at 128-row sub-tiles is persistent (a block
+// an SM, each walking tiles) where its tiles fill the SMs this many times
+constexpr int PERSIST_WAVES = 3;
 // row sub-tiles (wgmma's N): the first that divides bh
 constexpr int ROW_TILES[] = {128, 32, 8};
 
@@ -528,32 +557,66 @@ cudaError_t launch(const int* indptr, const int* indices,
   return cudaGetLastError();
 }
 
+// the tile that block blockIdx.x takes in its r-th round, or -1 past its
+// last: rounds of gridDim.x consecutive tiles, taken in block order on
+// even rounds and in reverse on odd ones, so that a block given one of a
+// round's heaviest tiles (row_order: heaviest first) gets one of the next
+// round's lightest.  With one block a tile, block x takes tile x alone
+__device__ __forceinline__ int ws_tile_index(int r, int tiles) {
+  const int g = gridDim.x, base = r * g;
+  if (base >= tiles) return -1;
+  const int x = base + ((r & 1) ? g - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  return x < tiles ? x : -1;
+}
+
+// one tile of the warp-specialised build: tile x is unit x / ncol (block
+// row row_order[unit / subs], its sub-tile unit % subs) and the TN columns
+// from c0 of column tile x % ncol; its stored blocks from j0, kq k-steps
+// each
+struct WsTile {
+  int br, sub, c0, j0, steps;
+};
+
+__device__ __forceinline__ WsTile ws_tile(int x, const int* indptr,
+                                          const int* row_order, int subs,
+                                          int ncol, int tn, int kq) {
+  const int unit = x / ncol;
+  WsTile t;
+  t.br = row_order[unit / subs];
+  t.sub = unit % subs;
+  t.c0 = (x % ncol) * tn;
+  t.j0 = indptr[t.br];
+  t.steps = (indptr[t.br + 1] - t.j0) * kq;
+  return t;
+}
+
 // The warp-specialised build (bf16 B, rows 16-byte aligned), with C
-// consumers.  Block x owns unit x / ncol (block row row_order[unit /
-// subs], its sub-tile unit % subs) and the TN = C x COLS columns of column
-// tile x % ncol, as the register build's blocks do.  Step t sits in ring
-// stage t % S.
-//   - Producer (warpgroup 0): waits until stage t is free (its empty
-//     barrier: one arrival from each consumer), arrives on the stage's
-//     full barrier expecting the planes' bytes, bulk-copies the step's
-//     planes into the stage, and copies the consumers' B tiles by cp.async
-//     into the swizzled layout (rows >= k and columns >= n zero-filled),
-//     each thread arriving on the full barrier when its copies land.
-//   - Consumers (warpgroups 1..C): each waits for step t's stage, issues
-//     its products (its B^T tile and the A^T planes, both by descriptor)
-//     into a fresh accumulator, then waits for step t - 1's products, adds
-//     them into its sums and frees their stage: one step's products run
-//     while the last step's are added and the next stage lands.  The
-//     products and their order are the register build's, so the sums are
-//     the same bits.  Then each stores its sums (zeros for an empty block
-//     row).
+// consumers.  Block c owns one tile of each round of gridDim.x tiles
+// (ws_tile_index; tiles in units' order, column tile fastest, as the
+// register build's blocks take them; one each where the grid is `tiles`).
+// Its steps are counted across its tiles: step t sits in ring stage t % S.
+//   - Producer (warpgroup 0): for each step of each of its tiles in turn,
+//     waits until stage t is free (its empty barrier: one arrival from
+//     each consumer), arrives on the stage's full barrier expecting the
+//     planes' bytes, bulk-copies the step's planes into the stage, and
+//     copies the consumers' B tiles by cp.async into the swizzled layout
+//     (rows >= k and columns >= n zero-filled), each thread arriving on the
+//     full barrier when its copies land.  It never waits on a tile's
+//     stores: the next tile's stages fill while they run.
+//   - Consumers (warpgroups 1..C): for each tile, for each step, each
+//     waits for step t's stage, issues its products (its B^T tile and the
+//     A^T planes, both by descriptor) into a fresh accumulator, waits for
+//     them, frees their stage and adds them into its sums.  The products
+//     and their order are the register build's, so the sums are the same
+//     bits.  Then each stores the tile's sums (zeros for an empty block
+//     row) and starts the next tile from zero.
 template <int RT, int C>
 __global__ void __launch_bounds__(WsGeo<RT, C>::THREADS, 1)
 bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
               const int* __restrict__ row_order,
               const uint8_t* __restrict__ planes,
               const __nv_bfloat16* __restrict__ b, float* __restrict__ out,
-              int m, int k, int n, int bh, int bw, int ncol) {
+              int m, int k, int n, int bh, int bw, int ncol, int tiles) {
   using G = WsGeo<RT, C>;
   constexpr int S = G::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -562,12 +625,7 @@ bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   uint64_t* empty = full + S;
   const int tid = threadIdx.x;
   const int subs = bh / RT;
-  const int unit = blockIdx.x / ncol;
-  const int br = row_order[unit / subs], sub = unit % subs;
-  const int c0 = (blockIdx.x % ncol) * G::TN;
-  const int j0 = indptr[br];
   const int kq = bw / KC;
-  const int steps = (indptr[br + 1] - j0) * kq;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -579,36 +637,41 @@ bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   __syncthreads();
 
   if (tid < 128) {
+    const int ch = tid % 8;
+    int t = 0;  // the block's running step
 #pragma unroll 1
-    for (int t = 0; t < steps; ++t) {
-      const int st = t % S;
-      const int j = j0 + t / kq, q = t % kq;
-      if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);
-      uint8_t* stage = smem + st * G::STAGE;
-      if (tid == 0) {
-        tc::mbar_expect_tx(&full[st], G::A_BYTES);
-        tc::bulk_copy(
-            stage,
-            planes + ((int64_t)(j * subs + sub) * kq + q) * G::A_BYTES,
-            G::A_BYTES, &full[st]);
-      }
-      // consumer w's KC x COLS tile: row r's 16-byte chunk c at chunk
-      // c ^ (r % 8)
-      const int64_t krow0 = (int64_t)indices[j] * bw + q * KC;
-      const int ch = tid % 8;
-#pragma unroll
-      for (int w = 0; w < C; ++w) {
-        uint8_t* bs = stage + G::A_BYTES + w * G::B_BYTES;
-        const int col = c0 + w * COLS + ch * 8;
-#pragma unroll
-        for (int r = tid / 8; r < KC; r += 16) {
-          const int64_t krow = krow0 + r;
-          const bool ok = krow < k && col < n;
-          tc::cp_async16(bs + r * 128 + ((ch ^ (r % 8)) << 4),
-                         ok ? b + krow * n + col : b, ok ? 16 : 0);
+    for (int r = 0, x; (x = ws_tile_index(r, tiles)) >= 0; ++r) {
+      const WsTile tl = ws_tile(x, indptr, row_order, subs, ncol, G::TN, kq);
+#pragma unroll 1
+      for (int s = 0; s < tl.steps; ++s, ++t) {
+        const int st = t % S;
+        const int j = tl.j0 + s / kq, q = s % kq;
+        if (t >= S) tc::mbar_wait(&empty[st], (t / S - 1) & 1);
+        uint8_t* stage = smem + st * G::STAGE;
+        if (tid == 0) {
+          tc::mbar_expect_tx(&full[st], G::A_BYTES);
+          tc::bulk_copy(
+              stage,
+              planes + ((int64_t)(j * subs + tl.sub) * kq + q) * G::A_BYTES,
+              G::A_BYTES, &full[st]);
         }
+        // consumer w's KC x COLS tile: row r's 16-byte chunk c at chunk
+        // c ^ (r % 8)
+        const int64_t krow0 = (int64_t)indices[j] * bw + q * KC;
+#pragma unroll
+        for (int w = 0; w < C; ++w) {
+          uint8_t* bs = stage + G::A_BYTES + w * G::B_BYTES;
+          const int col = tl.c0 + w * COLS + ch * 8;
+#pragma unroll
+          for (int r = tid / 8; r < KC; r += 16) {
+            const int64_t krow = krow0 + r;
+            const bool ok = krow < k && col < n;
+            tc::cp_async16(bs + r * 128 + ((ch ^ (r % 8)) << 4),
+                           ok ? b + krow * n + col : b, ok ? 16 : 0);
+          }
+        }
+        tc::cp_async_mbar_arrive_noinc(&full[st]);
       }
-      tc::cp_async_mbar_arrive_noinc(&full[st]);
     }
     return;
   }
@@ -618,50 +681,67 @@ bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   const int ctid = tid % 128;
   const int warp = ctid / 32, lane = ctid % 32;
   const int gid = lane / 4, t4 = lane % 4;
-  // acc: the sums, f32, rounded to nearest; part: one step's products,
-  // wgmma's accumulator, started afresh each step
+  // acc: a tile's sums, f32, rounded to nearest; part: one step's
+  // products, wgmma's accumulator, started afresh each step
   float acc[G::ACC], part[G::ACC];
 #pragma unroll
-  for (int i = 0; i < G::ACC; ++i) acc[i] = part[i] = 0.f;
+  for (int i = 0; i < G::ACC; ++i) part[i] = 0.f;
+  int t = 0;  // the block's running step, as the producer's
 #pragma unroll 1
-  for (int t = 0; t < steps; ++t) {
-    const int st = t % S;
-    tc::mbar_wait(&full[st], (t / S) & 1);
-    tc::fence_proxy_async();  // B landed through cp.async, wgmma reads it
-    const uint32_t a_base = tc::smem_addr(smem + st * G::STAGE);
-    const uint32_t b_base = a_base + G::A_BYTES + wg * G::B_BYTES;
-    fence_acc(part);
-    wgmma_fence();
+  for (int r = 0, x; (x = ws_tile_index(r, tiles)) >= 0; ++r) {
+    const WsTile tl = ws_tile(x, indptr, row_order, subs, ncol, G::TN, kq);
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk)
+    for (int i = 0; i < G::ACC; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < tl.steps; ++s, ++t) {
+      const int st = t % S;
+      tc::mbar_wait(&full[st], (t / S) & 1);
+      tc::fence_proxy_async();  // B landed through cp.async, wgmma reads it
+      const uint32_t a_base = tc::smem_addr(smem + st * G::STAGE);
+      const uint32_t b_base = a_base + G::A_BYTES + wg * G::B_BYTES;
+      fence_acc(part);
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < TERMS; ++i)
-        wgmma_ss<RT>(part, sw128_desc(b_base + kk * 16 * 128),
-                     sw128_desc(a_base + i * G::PLANE_BYTES + kk * 32),
-                     kk + i > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(part);
-    if (ctid == 0) tc::mbar_arrive(&empty[st]);  // the stage is free
+      for (int kk = 0; kk < KC / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < G::ACC; ++i) acc[i] += part[i];
-  }
-
-  // acc[4i + 2h + e]: output column c0 + 64·wg + 16·warp + gid + 8h, row
-  // 8i + 2·t4 + e of the sub-tile (as the register build stores)
-  const int64_t row0 = (int64_t)br * bh + sub * RT;
-  const int col = c0 + wg * COLS + warp * 16 + gid;
+        for (int i = 0; i < TERMS; ++i)
+          wgmma_ss<RT>(part, sw128_desc(b_base + kk * 16 * 128),
+                       sw128_desc(a_base + i * G::PLANE_BYTES + kk * 32),
+                       kk + i > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(part);
+      if (ctid == 0) tc::mbar_arrive(&empty[st]);  // the stage is free
 #pragma unroll
-  for (int r = 0; r < RT / 8; ++r)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int64_t row = row0 + 8 * r + 2 * t4 + e;
-      if (row >= m) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (col + 8 * h < n)
-          out[row * n + col + 8 * h] = acc[4 * r + 2 * h + e];
+      for (int i = 0; i < G::ACC; ++i) acc[i] += part[i];
     }
+
+    // acc[4i + 2h + e]: output column c0 + 64·wg + 16·warp + gid + 8h,
+    // row 8i + 2·t4 + e of the sub-tile (as the register build stores)
+    const int64_t row0 = (int64_t)tl.br * bh + tl.sub * RT;
+    const int col = tl.c0 + wg * COLS + warp * 16 + gid;
+#pragma unroll
+    for (int r = 0; r < RT / 8; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int64_t row = row0 + 8 * r + 2 * t4 + e;
+        if (row >= m) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (col + 8 * h < n)
+            out[row * n + col + 8 * h] = acc[4 * r + 2 * h + e];
+      }
+  }
+}
+
+// the blocks of the warp-specialised build's grid for `tiles` tiles of RT
+// rows on `sms` SMs: one an SM, each walking tiles, at 128-row sub-tiles
+// where the tiles fill the SMs PERSIST_WAVES times; else one a tile
+template <int RT>
+long long ws_grid(long long tiles, int sms) {
+  if (RT == ROW_TILES[0] && tiles >= (long long)PERSIST_WAVES * sms)
+    return tiles < sms ? tiles : sms;
+  return tiles;
 }
 
 template <int RT, int C>
@@ -669,7 +749,7 @@ cudaError_t launch_ws_c(const int* indptr, const int* indices,
                         const int* row_order, const uint8_t* planes,
                         const __nv_bfloat16* b, float* out,
                         int num_block_rows, int m, int k, int n, int bh,
-                        int bw, cudaStream_t stream) {
+                        int bw, int sms, cudaStream_t stream) {
   using G = WsGeo<RT, C>;
   auto kernel = bsr_ws_kernel<RT, C>;
   // the kernel's shared-memory limit is raised once on each device, as
@@ -686,10 +766,11 @@ cudaError_t launch_ws_c(const int* indptr, const int* indices,
     raised.fetch_or(bit, std::memory_order_relaxed);
   }
   const int ncol = (n + G::TN - 1) / G::TN;
-  const long long grid = (long long)num_block_rows * (bh / RT) * ncol;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)grid, G::THREADS, G::SMEM, stream>>>(
-      indptr, indices, row_order, planes, b, out, m, k, n, bh, bw, ncol);
+  const long long tiles = (long long)num_block_rows * (bh / RT) * ncol;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)ws_grid<RT>(tiles, sms), G::THREADS, G::SMEM, stream>>>(
+      indptr, indices, row_order, planes, b, out, m, k, n, bh, bw, ncol,
+      (int)tiles);
   return cudaGetLastError();
 }
 
@@ -709,7 +790,7 @@ int sm_count(cudaError_t* err) {
 }
 
 // two consumers on 2·COLS-column tiles where B is wider than COLS and
-// their grid fills the SMs WS_WAVES times, else one
+// their tiles fill the SMs WS_WAVES times, else one; the grid: ws_grid
 template <int RT>
 cudaError_t launch_ws(const int* indptr, const int* indices,
                       const int* row_order, const uint8_t* planes,
@@ -726,9 +807,9 @@ cudaError_t launch_ws(const int* indptr, const int* indices,
     return launch_ws_c<RT, CONSUMER_WARPGROUPS>(indptr, indices, row_order,
                                                 planes, bt, out,
                                                 num_block_rows, m, k, n, bh,
-                                                bw, stream);
+                                                bw, sms, stream);
   return launch_ws_c<RT, 1>(indptr, indices, row_order, planes, bt, out,
-                            num_block_rows, m, k, n, bh, bw, stream);
+                            num_block_rows, m, k, n, bh, bw, sms, stream);
 }
 
 template <int RT>

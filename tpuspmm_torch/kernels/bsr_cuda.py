@@ -5,7 +5,9 @@ Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
 here runs when the module is imported.  Which build serves a B is a
 function of its dtype, width and alignment (``warp_specialised``): a bf16
 B with 16-byte aligned rows takes the warp-specialised build; a binding
-that takes it records the span ``tpuspmm_torch.bsr.bind_ws``.
+that takes it records the span ``tpuspmm_torch.bsr.bind_ws``, and where
+that build's grid is persistent (``ws_grid``) the counter
+``tpuspmm_torch.bsr.persistent``.
 """
 
 from __future__ import annotations
@@ -30,14 +32,19 @@ TERMS = 3
 ROW_TILES = (128, 32, 8)
 COLUMN_TILE = 64
 # the warp-specialised build's: producer and consumer warpgroups at most
-# (each consumer on COLUMN_TILE columns), its ring's stages at most, and
-# the waves of two-consumer blocks a grid must fill to take them
-# (``ws_consumers``)
+# (each consumer on COLUMN_TILE columns), its ring's stages at most, the
+# waves of two-consumer blocks a grid must fill to take them
+# (``ws_consumers``), and the waves of 128-row tiles that make its grid
+# persistent (``ws_grid``)
 PRODUCER_WARPGROUPS = 1
 CONSUMER_WARPGROUPS = 2
 WS_STAGES = 4
 WS_WAVES = 2
+PERSIST_WAVES = 3
 BIND_WS_SPAN = "tpuspmm_torch.bsr.bind_ws"
+# a counter, added once a binding whose warp-specialised grid is
+# persistent: the tiles its busiest block walks
+PERSISTENT_COUNT = "tpuspmm_torch.bsr.persistent"
 
 
 def row_tile(bh: int) -> int:
@@ -70,6 +77,40 @@ def ws_consumers(units: int, n: int, sms: int) -> int:
     if n > COLUMN_TILE and units * -(-n // wide) >= WS_WAVES * sms:
         return CONSUMER_WARPGROUPS
     return 1
+
+
+def ws_tiles(units: int, n: int, sms: int) -> int:
+    """Tiles of the warp-specialised build for ``units`` row sub-tiles and
+    B of width n on ``sms`` SMs: units x column tiles of ``ws_consumers``
+    x COLUMN_TILE columns (the source's ``launch_ws_c``)."""
+    return units * -(-n // (COLUMN_TILE * ws_consumers(units, n, sms)))
+
+
+def ws_grid(units: int, n: int, sms: int, rt: int) -> int:
+    """Blocks of the warp-specialised build's grid (the source's
+    ``ws_grid``): at 128-row sub-tiles (``rt``), min(tiles, sms) where the
+    tiles fill the SMs PERSIST_WAVES times, each block walking tiles; else
+    one block a tile."""
+    tiles = ws_tiles(units, n, sms)
+    if rt == ROW_TILES[0] and tiles >= PERSIST_WAVES * sms:
+        return min(tiles, sms)
+    return tiles
+
+
+def ws_schedule(units: int, n: int, sms: int, rt: int) -> list:
+    """Each block's tiles in the order it walks them, as (unit, column
+    tile), units in ``row_order``'s order and column tile fastest: block c
+    takes one tile of each round of ``grid`` consecutive tiles, the c-th on
+    even rounds and the c-th from the end on odd ones (the source's
+    ``ws_tile_index``)."""
+    tiles, grid = ws_tiles(units, n, sms), ws_grid(units, n, sms, rt)
+    ncol = tiles // units if units else 0
+    walks = []
+    for c in range(grid):
+        xs = [base + (grid - 1 - c if r % 2 else c)
+              for r, base in enumerate(range(0, tiles, grid))]
+        walks.append([divmod(x, ncol) for x in xs if x < tiles])
+    return walks
 
 
 def vector_staging(b: torch.Tensor) -> bool:
@@ -138,7 +179,9 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
     here, and raises on what the kernel does not take; each launch takes
     the build its B allows (``vector_staging``, ``warp_specialised``); a
     binding for a B that takes the warp-specialised build is the span
-    ``tpuspmm_torch.bsr.bind_ws``."""
+    ``tpuspmm_torch.bsr.bind_ws``, and where that build's grid is
+    persistent (``ws_grid``) it adds the tiles its busiest block walks to
+    the counter ``tpuspmm_torch.bsr.persistent``."""
     num_block_rows, bh, bw = _checked(indptr, indices, row_order, planes, b,
                                       m, block_size)
     k, n = (int(s) for s in b.shape)
@@ -152,11 +195,20 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
         vector = int(rows_aligned and b_ptr % 16 == 0)  # vector_staging(b)
         return (*head, b_ptr, b_bf16, vector, out_ptr, *tail, stream)
 
-    with (profiling.span(BIND_WS_SPAN) if warp_specialised(b.dtype, n)
+    ws = warp_specialised(b.dtype, n)
+    with (profiling.span(BIND_WS_SPAN) if ws
           else contextlib.nullcontext()):
-        return cuda_build.Launch(sys.modules[__name__], ENTRY,
-                                 "bsr_spmm_error_string", ENTRY, b, m, args,
-                                 keep, counter)
+        launch = cuda_build.Launch(sys.modules[__name__], ENTRY,
+                                   "bsr_spmm_error_string", ENTRY, b, m,
+                                   args, keep, counter)
+        if ws:
+            rt = row_tile(bh)
+            units = num_block_rows * (bh // rt)
+            sms = cuda_build.sm_count(b.device)
+            tiles, grid = ws_tiles(units, n, sms), ws_grid(units, n, sms, rt)
+            if grid < tiles:
+                profiling.count(PERSISTENT_COUNT, -(-tiles // grid))
+        return launch
 
 
 def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,

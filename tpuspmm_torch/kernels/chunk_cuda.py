@@ -14,7 +14,6 @@ here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
-import functools
 import sys
 
 import torch
@@ -70,11 +69,6 @@ def check_shape(tm: int) -> None:
     if not 0 < tm <= MAX_ROWS:
         raise ValueError(f"tile_m={tm}: the tile-owner routine runs row "
                          f"tiles of 1 to {MAX_ROWS} rows")
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def column_tile(num_tiles: int, n: int, sms: int) -> int:
@@ -165,7 +159,7 @@ def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
     name = "tile_owner_spmm" if sched is None else "cres_cluster_spmm"
     b_bf16 = int(b.dtype == torch.bfloat16)
     tail = (num_tiles, m, k, n, tm, tk, n_dense, int(split2),
-            _sm_count(b.device))
+            cuda_build.sm_count(b.device))
 
     def args(b_ptr, out_ptr, stream):
         return (*head, b_ptr, b_bf16, out_ptr, *tail, stream)

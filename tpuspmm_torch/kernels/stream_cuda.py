@@ -9,7 +9,6 @@ here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -28,11 +27,6 @@ def _bind(lib) -> None:
 
 
 LIBRARY = cuda_build.CudaLibrary("stream.cu", _bind)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_plain(x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +51,8 @@ def stream(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
         rc = getattr(lib, ENTRY)(
-            x.data_ptr(), y.data_ptr(), x.numel(), _sm_count(x.device),
+            x.data_ptr(), y.data_ptr(), x.numel(),
+            cuda_build.sm_count(x.device),
             torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check_launch(lib, "stream_error_string", ENTRY, rc)
     stream.launches += 1

@@ -9,7 +9,6 @@ CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
-import functools
 import sys
 
 import torch
@@ -46,11 +45,6 @@ load = LIBRARY.load
 
 _TYPES = (torch.float32, torch.bfloat16)
 _INDEX = ("group_ptr", "group_kt", "group_slot", "group_order")
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _checked(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
@@ -100,8 +94,8 @@ def bind(entry: str, arrs: dict, b: torch.Tensor, n_out_strips: int,
     k, n = (int(s) for s in b.shape)
     head = (a.data_ptr(), int(a.dtype == torch.bfloat16))
     mid = (int(b.dtype == torch.bfloat16), *(t.data_ptr() for t in idx))
-    tail = (n_groups, n_out_strips * tm, tm, tk, k, n, _sm_count(b.device),
-            int(split2))
+    tail = (n_groups, n_out_strips * tm, tm, tk, k, n,
+            cuda_build.sm_count(b.device), int(split2))
 
     def args(b_ptr, out_ptr, stream):
         return (*head, b_ptr, *mid, out_ptr, *tail, stream)
