@@ -9,7 +9,8 @@ Run from the repository root:
 ``--k6-parent DIR``: a checkout of an earlier commit (``git archive``
 unpacked into a git-ignored directory, e.g. ``_archive/parent``), whose
 K6 phase 4b runs in a subprocess of its own on the same operands; every
-bf16-B output of K6 must equal that commit's bit for bit.
+bf16-B output of K6 must equal that commit's bit for bit, and each
+binding's consumers and grid that commit's.
 
 Prints one JSON object per phase:
 
@@ -86,19 +87,22 @@ Prints one JSON object per phase:
    shapes and widths of K6_SHAPES (bh 8-512); both builds that stage B
    (16-byte cp.async, and plain loads for rows not 16-byte aligned) must
    be among those held, for f32 and bf16 B (with bf16 B the first is the
-   warp-specialised build, whose consumers ``bsr_cuda.ws_consumers``
-   gives and the records carry, with its tiles and grid).  Then K6's
+   warp-specialised build; each record carries its binding's launch
+   shape, ``Launch.shape``: the build, its consumers, grid and tiles, as
+   handed to the C entry).  Then K6's
    times (bf16 and f32 B) on the weights of ``strip_sweep.BSR_CASES`` as
    the benchmark draws them (``strip_sweep.bsr_weights``: ROTATE weights
    launched in turn, so a call's planes are not in L2 from the last):
    Olmo-Hybrid-7B's gate and down at w512 and w16, DeepSeek-V3's expert
    gate and down and dense gate and down at w4096 (the expert gate also at
    w4093), and the expert gate and down at the routed width 3392
-   (K6_ROUTED), each held to its plain version, each binding's
-   ``tpuspmm_torch.bsr.persistent`` count equal to its busiest block's
-   tiles where the warp-specialised grid is persistent and to none
-   elsewhere.  With ``--k6-parent``, every bf16-B output of the phase
-   equals the parent's bit for bit;
+   (K6_ROUTED), each held to its plain version, each binding's launch
+   shape the warp-specialised build's (a grid of 1 to its tiles;
+   persistent where below them) where B is bf16 with 16-byte rows, else
+   the register build's.
+   With ``--k6-parent``, every bf16-B output of the phase equals the
+   parent's bit for bit, and each of its bindings' consumers and grid
+   equal those the parent's rules give;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
    runs: large_25605 w256 in f32 and bf16, one record in bench.py's shape;
    then the corpus dirs large_15120, large_21074, medium_2048 and
@@ -458,27 +462,42 @@ def plain_tol(mode: str) -> float:
 K6_PARENT = (sys.argv[sys.argv.index("--k6-parent") + 1]
              if "--k6-parent" in sys.argv else None)
 # the parent's K6 on phase 4b's operands, run from its checkout (argv:
-# the operands' file, the outputs' file)
+# the operands' file, the outputs' file): each output, and the consumers
+# and grid its binding hands the C entry (its launch's ``shape``, or for
+# a parent that decided them in the source, the Python copy of its rules)
 PARENT_K6 = """
 import sys
 import torch
 from tpuspmm_torch.formats import BSR
-from tpuspmm_torch.kernels import bsr_spmm
-out = {}
+from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm, cuda_build
+out, shapes = {}, {}
 for key, c in torch.load(sys.argv[1]).items():
     a = BSR(indptr=c["indptr"].numpy(), indices=c["indices"].numpy(),
             blocks=c["blocks"].numpy(), shape=tuple(c["shape"]),
             block_size=tuple(c["block_size"]), nnz=int(c["nnz"]))
-    out[key] = bsr_spmm.spmm_bsr_stream(a, c["b"].cuda()).cpu()
-torch.save(out, sys.argv[2])
+    b = c["b"].cuda()
+    out[key] = bsr_spmm.spmm_bsr_stream(a, b).cpu()
+    shape = getattr(bsr_spmm.stream_launch(a, b), "shape", None)
+    if shape is not None:
+        shapes[key] = [shape["consumers"], shape["grid"]]
+    elif bsr_cuda.warp_specialised(b.dtype, b.shape[1]):
+        n, bh = b.shape[1], a.block_size[0]
+        rt, sms = bsr_cuda.row_tile(bh), cuda_build.sm_count(b.device)
+        units = a.num_block_rows * (bh // rt)
+        shapes[key] = [bsr_cuda.ws_consumers(units, n, sms),
+                       bsr_cuda.ws_grid(units, n, sms, rt)]
+    else:
+        shapes[key] = [0, 0]
+torch.save({"out": out, "shapes": shapes}, sys.argv[2])
 """
 
 
 def k6_parent_equal(parent: str, outputs: dict) -> dict:
-    """{key: the parent's K6 output equals ours bit for bit} for outputs
-    {key: (BSR, B, our output)}; the parent's K6 runs in a subprocess from
-    its checkout ``parent``, which builds its own library under its
-    build/."""
+    """{key: whether the parent's K6 output equals ours bit for bit, and
+    the [consumers, grid] of the parent's binding and of ours} for outputs
+    {key: (BSR, B, our output, our binding's launch shape)}; the parent's
+    K6 runs in a subprocess from its checkout ``parent``, which builds its
+    own library under its build/."""
     work = os.path.join(REPO, "build", "k6_parent")
     os.makedirs(work, exist_ok=True)
     inp, out = os.path.join(work, "in.pt"), os.path.join(work, "out.pt")
@@ -488,7 +507,7 @@ def k6_parent_equal(parent: str, outputs: dict) -> dict:
                       "shape": list(a.shape),
                       "block_size": list(a.block_size), "nnz": int(a.nnz),
                       "b": b.cpu()}
-                for key, (a, b, _) in outputs.items()}, inp)
+                for key, (a, b, _, _) in outputs.items()}, inp)
     parent = os.path.abspath(parent)
     res = subprocess.run([sys.executable, "-c", PARENT_K6, inp, out],
                          cwd=parent, env=dict(os.environ, PYTHONPATH=parent),
@@ -496,8 +515,10 @@ def k6_parent_equal(parent: str, outputs: dict) -> dict:
     if res.returncode:
         raise RuntimeError(f"the parent's K6 failed:\n{res.stderr[-3000:]}")
     theirs = torch.load(out)
-    return {key: bool(torch.equal(theirs[key], got))
-            for key, (_, _, got) in outputs.items()}
+    return {key: {"bit_equal": bool(torch.equal(theirs["out"][key], got)),
+                  "parent": theirs["shapes"][key],
+                  "ours": [shape["consumers"], shape["grid"]]}
+            for key, (_, _, got, shape) in outputs.items()}
 
 
 # phase 10e: one MoE layer of the DeepSeek-V3 configuration at its
@@ -526,9 +547,10 @@ def moe_phase() -> None:
     a seeded router over all 256 experts and MOE_TOKENS tokens, this
     chip's shared part on its first MOE_CHUNK.  Per draw of bf16 tokens:
     the per-expert token counts, the first call's and a repeat's wall
-    time, the handle builds and warp-specialised binds the first made (the
-    builds that were not warp-specialised took K6's register build, and
-    there must be none); one profiled call's spans and K6 launches by
+    time, the handle builds the first made and how many of them bound K6's
+    warp-specialised build (each new handle's recorded launch shape; the
+    others took K6's register build, and there must be none); one
+    profiled call's spans and K6 launches by
     kernel.  Then the layer against the reference on the card (bf16 and
     f32 tokens), each with the control, the reference on bf16-rounded
     expert weights, which must miss the limits.  Emits ``moe_draws``,
@@ -536,6 +558,7 @@ def moe_phase() -> None:
     from spmm_bench.generators import pruned_moe
     from spmm_bench.models import deepseek_v3_moe as ref
     from tpuspmm_torch import BSR, Expert, Routing, moe
+    from tpuspmm_torch.formats.base import container_cache
     from tpuspmm_torch.ops.moe import TOKENS_COUNTER
     from tpuspmm_torch.utils import profiling
 
@@ -577,6 +600,15 @@ def moe_phase() -> None:
     def layer(x):
         return moe(x, router, bias, experts, routing, shared, own=own)
 
+    weights = [w for e in (*experts.values(), shared)
+               for w in (e.gate, e.up, e.down)]
+
+    def handles() -> dict:
+        """The served handles cached on the layer's weights, by id."""
+        return {id(h): h for w in weights
+                for key, h in container_cache(w).items()
+                if isinstance(key, tuple) and key[0] == "served"}
+
     def timed(x):
         before = profiling.snapshot()
         torch.cuda.synchronize()
@@ -600,20 +632,23 @@ def moe_phase() -> None:
         chosen, _ = ref.route(x, router, bias, config)
         loads = torch.bincount(chosen.flatten(), minlength=n_experts)
         widths = loads[:len(experts)].tolist()
+        known = handles()
         _, first_s, built = timed(x)
+        new = [h for i, h in handles().items() if i not in known]
         _, repeat_s, again = timed(x)
         builds = built.get("tpuspmm_torch.served.build", 0)
-        bind_ws = built.get("tpuspmm_torch.bsr.bind_ws", 0)
+        ws_builds = sum(1 for h in new if h.route == "bsr_stream"
+                        and h.launch.shape["build"] == "warp_specialised")
         draws.append({
             "expert_tokens": widths,
             "load_min_max_of_256": [int(loads.min()), int(loads.max())],
             "first_call_s": first_s, "repeat_call_s": repeat_s,
-            "first_builds": builds, "first_bind_ws": bind_ws,
+            "first_builds": builds, "first_ws_builds": ws_builds,
             "repeat_builds": again.get("tpuspmm_torch.served.build", 0),
             "tokens_counted": again.get(TOKENS_COUNTER, 0),
             "k6_calls": 3 * (sum(1 for n in widths if n) + 1),
-            "register_builds": builds - bind_ws})
-        check(builds == bind_ws,
+            "register_builds": builds - ws_builds})
+        check(builds == len(new) == ws_builds,
               f"every handle the layer built is warp-specialised ({draw})")
         check(again.get(TOKENS_COUNTER, 0) == sum(widths),
               f"the tokens counter adds the held experts' tokens ({draw})")
@@ -1866,20 +1901,10 @@ def main() -> int:
         staged.add((str(b.dtype), bsr_cuda.vector_staging(b)))
         return got, err, scale, control
 
-    def k6_ws(kw, b) -> dict:
-        """The warp-specialised build's consumer warpgroups, tiles and
-        grid for (kw, b) (the grid below the tiles: persistent), or Nones
-        where another build takes b."""
-        n = int(b.shape[1])
-        if not (bsr_cuda.warp_specialised(b.dtype, n)
-                and bsr_cuda.vector_staging(b)):
-            return {"ws_consumers": None, "ws_tiles": None, "ws_grid": None}
-        bh = kw.block_size[0]
-        rt = bsr_cuda.row_tile(bh)
-        units = kw.num_block_rows * (bh // rt)
-        return {"ws_consumers": bsr_cuda.ws_consumers(units, n, sms),
-                "ws_tiles": bsr_cuda.ws_tiles(units, n, sms),
-                "ws_grid": bsr_cuda.ws_grid(units, n, sms, rt)}
+    def k6_shape(kw, b) -> dict:
+        """The launch shape K6's binding for (kw, b) decided and hands the
+        C entry: the build, its consumers, grid and tiles."""
+        return dict(bsr_spmm.stream_launch(kw, b).shape)
 
     def k6_floors(kw, width: int) -> dict:
         """K6's tensor-core products at the bf16 rate (six a k-step with
@@ -1919,7 +1944,7 @@ def main() -> int:
             tag = "f32" if b.dtype == torch.float32 else "bf16"
             got, err, scale, control = k6_twice(kw, b, f"({key}, {tag})")
             if tag == "bf16":
-                k6_bf16[key] = (kw, b, got.cpu())
+                k6_bf16[key] = (kw, b, got.cpu(), k6_shape(kw, b))
             ref = oracle.spmm_oracle(w, b.float().cpu().numpy())
             if width == PRUNED_WIDTH:
                 k6_refs[wname, tag] = ref
@@ -1929,7 +1954,7 @@ def main() -> int:
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
                         "vector_staging": bsr_cuda.vector_staging(b),
-                        **k6_ws(kw, b),
+                        "launch_shape": k6_shape(kw, b),
                         "ms": cuda_time_ms(lambda: k6(kw, b)),
                         "device_ms": device_ms(lambda: k6(kw, b)),
                         "plain_ms": cuda_time_ms(
@@ -1972,7 +1997,8 @@ def main() -> int:
             got, err, scale, control = k6_twice(w, b,
                                                 f"{block} w{width} {tag}")
             if tag == "bf16":
-                k6_bf16[f"{block} w{width}"] = (w, b, got.cpu())
+                k6_bf16[f"{block} w{width}"] = (w, b, got.cpu(),
+                                                k6_shape(w, b))
             gate = allclose(got, oracle.spmm_oracle(w, b.float().cpu().numpy()))
             check(gate, f"K6 {block} w{width} {tag} gate vs f64 oracle")
             if w.nblocks == 0:
@@ -1980,7 +2006,7 @@ def main() -> int:
             rec[tag] = {"max_abs_err": err, "max_abs_c": scale, "gate": gate,
                         "products3_err": control,
                         "vector_staging": bsr_cuda.vector_staging(b),
-                        **k6_ws(w, b)}
+                        "launch_shape": k6_shape(w, b)}
             del got
         emit("bsr_kernel_shapes", **rec)
     # both builds that stage B were held, with f32 and bf16 B
@@ -1989,9 +2015,9 @@ def main() -> int:
     # K6 on Olmo-Hybrid-7B's and DeepSeek-V3's weights, as the benchmark
     # draws them, ROTATE weights in turn (the device time is a launch's),
     # and on DeepSeek-V3's expert weights at a routed width whose tiles are
-    # no multiple of the SMs (K6_ROUTED); each binding's count of
-    # PERSISTENT_COUNT must be its busiest block's tiles where its grid is
-    # persistent, else none
+    # no multiple of the SMs (K6_ROUTED); each binding's launch shape must
+    # be the warp-specialised build's where B is bf16 with 16-byte rows,
+    # else the register build's
     import strip_sweep
     for wname, rows, cols, block, dens, seed, width in (
             strip_sweep.BSR_CASES[2:] + K6_ROUTED):
@@ -2004,29 +2030,27 @@ def main() -> int:
                "empty_block_rows": int((np.diff(ws[0].indptr) == 0).sum())}
         for b in (ob32.to(torch.bfloat16), ob32):
             tag = "f32" if b.dtype == torch.float32 else "bf16"
-            before = profiling.snapshot().get(
-                bsr_cuda.PERSISTENT_COUNT, (0, 0.0))[0]
             got = k6(ws[0], b)
-            counted = profiling.snapshot().get(
-                bsr_cuda.PERSISTENT_COUNT, (0, 0.0))[0] - before
-            grid = k6_ws(ws[0], b)
-            persistent = (grid["ws_grid"] is not None
-                          and grid["ws_grid"] < grid["ws_tiles"])
-            check(counted == (-(-grid["ws_tiles"] // grid["ws_grid"])
-                              if persistent else 0),
-                  f"K6 {wname} w{width} {tag}: {counted} counted as "
-                  f"{bsr_cuda.PERSISTENT_COUNT} ({grid})")
+            shape = k6_shape(ws[0], b)
+            ws_build = (shape["build"] == "warp_specialised"
+                        and shape["consumers"] > 0
+                        and 1 <= shape["grid"] <= shape["tiles"])
+            check(ws_build if bsr_cuda.warp_specialised(b.dtype, width)
+                  else shape["consumers"] == 0,
+                  f"K6 {wname} w{width} {tag}: launch shape {shape}")
             want = bsr_spmm.bsr_spmm_plain(ws[0], b)
             err, scale = max_abs_err(got, want), float(want.abs().max())
             check(err <= K6_TOL * scale,
                   f"K6 {wname} w{width} {tag} |kernel - plain| {err} <= "
                   f"{K6_TOL}*{scale}")
             if tag == "bf16" and K6_PARENT:
-                k6_bf16[f"{wname} w{width}"] = (ws[0], b.cpu(), got.cpu())
+                k6_bf16[f"{wname} w{width}"] = (ws[0], b.cpu(), got.cpu(),
+                                                shape)
             del got, want
             rec[tag] = {
-                "max_abs_err": err, "max_abs_c": scale, **grid,
-                "persistent_count": counted,
+                "max_abs_err": err, "max_abs_c": scale,
+                "launch_shape": shape,
+                "persistent": ws_build and shape["grid"] < shape["tiles"],
                 "ms": cuda_time_ms(lambda: [k6(w, b) for w in ws])
                 / len(ws),
                 "device_ms": device_ms(lambda: [k6(w, b) for w in ws])
@@ -2035,9 +2059,12 @@ def main() -> int:
         del ws
     if K6_PARENT:
         same = k6_parent_equal(K6_PARENT, k6_bf16)
-        emit("bsr_kernel_vs_parent", parent=K6_PARENT, bit_equal=same)
-        check(same and all(same.values()),
+        emit("bsr_kernel_vs_parent", parent=K6_PARENT, operands=same)
+        check(same and all(v["bit_equal"] for v in same.values()),
               f"K6's bf16-B outputs equal the parent's bit for bit ({same})")
+        check(all(v["parent"] == v["ours"] for v in same.values()),
+              f"K6's bindings pass the parent's consumers and grid "
+              f"({same})")
     del k6_bf16
     bsr_window = k6.launches
     emit("bsr_kernel_launches", bsr_stream=bsr_window)

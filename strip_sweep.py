@@ -31,29 +31,34 @@ per kernel, and one JSON line per (case, B dtype) with each variant's ms.
 ``--bsr`` sweeps the block-streaming kernel K6 (csrc/bsr_spmm.cu):
 BSR_VARIANTS patch its source (column tile 64 or 128, ring depths, block
 rows in index order against heaviest first, B staged by plain loads
-against cp.async, the warp-specialised grid persistent from 1, 2, 3 or 4
-waves of 128-row tiles or never, and controls, which are not held to the
-tolerance:
+against cp.async, and controls, which are not held to the tolerance:
 three f32-B products instead of six, 1 KB of a step's A planes copied
 instead of all, the ring's copies alone, and the step's products alone on
 stages filled once; the last two patch the loop that f32 B and unaligned
-bf16 B run) on BSR_CASES: chip_smoke.py's pruned weights, and an
-Olmo-Hybrid-7B gate and down weight as the benchmark draws them, at w512
-and w16 (``--cases olmo_gate,olmo_down`` for those alone), and a
-DeepSeek-V3 expert's gate [2048, 7168] and down [7168, 2048] weight at
+bf16 B run), and BSR_OVERRIDES set the launch rules' constants of
+``kernels/bsr_cuda.py`` for the variant's bindings, on the serving
+library (the warp-specialised build's consumers, two whenever B is wider
+than a column tile or one always; its grid persistent from 1, 2, 3 or 4
+waves of 128-row tiles or never), on BSR_CASES: chip_smoke.py's pruned
+weights, and an Olmo-Hybrid-7B gate and down weight as the benchmark
+draws them, at w512 and w16 (``--cases olmo_gate,olmo_down`` for those
+alone), and a DeepSeek-V3 expert's gate [2048, 7168] and down [7168, 2048] weight at
 w4096 (the gate also at w4093, a routed width that takes the register
 build) and its dense layers' gate [18432, 7168] and down [7168, 18432] at
 w4096 (``--cases dsv3_gate,dsv3_down,dsv3_dense_gate,dsv3_dense_down``).  Each
-variant runs through ``spmm_bsr_stream`` with the variant's library, is
+variant runs through ``spmm_bsr_stream`` with the variant's library (an
+override variant through its own bindings on the same arrays), is
 held against the plain version (K6_TOL, 2e-6·max|C|, chip_smoke.py's
 limit for K6, which the three-product control must miss with f32 B) and
 timed as above.
 
 ``--chunk`` sweeps the tile-owner routine (K3, K4, K5a, K5b) instead:
-CHUNK_VARIANTS patch its source (column tile, ring depth, launch order,
-gathered rows in flight) or change what the host hands it (the dense
-path's threshold, with every tile gathered and every tile dense as
-controls; a 64-row tile, which runs 4 warps a block), on CHUNK_CASES.
+CHUNK_VARIANTS patch its source (ring depth, launch order, gathered rows
+in flight) or change what the host hands it (the dense path's threshold,
+with every tile gathered and every tile dense as controls; a 64-row tile,
+which runs 4 warps a block), and CHUNK_OVERRIDES set ``chunk_cuda``'s
+column tiles for the variant's bindings (64 or 128 always), on
+CHUNK_CASES.
 Each variant runs K3's entry on the tile plan, is held against the plain
 version on a 128-column slice of B (1e-4·max|C|) and timed as above
 (``ms``: graph replay; ``call_ms``: the wrapper).  CLUSTER_VARIANTS run
@@ -72,6 +77,7 @@ record has the clusters the card holds at once (``max_active_clusters``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import io
 import json
@@ -219,8 +225,6 @@ VARIANTS = {
 # name: ([(text of chunk_spmm.cu, its replacement), ...], dense threshold
 # in nonzeros per tile_k (None: the routine's, tile_spmm.DENSE_PER_TILE_K),
 # tile_m)
-CHUNK_WIDE = ("const int wide = (long long)num_tiles * ((n + WIDE_TN - 1) / "
-              "WIDE_TN) >= sms;")
 # the gather's loads back to back, and each after its own shuffles
 CHUNK_LOADS = """#pragma unroll
       for (int u = 0; u < UNROLL; ++u)
@@ -295,8 +299,6 @@ CHUNK_VARIANTS = {
     "dense_1x": ([], 1.0, 128),
     "dense_4x": ([], 4.0, 128),
     "dense_32x": ([], 32.0, 128),
-    "tn64": ([(CHUNK_WIDE, "const int wide = 0;")], None, 128),
-    "tn128": ([(CHUNK_WIDE, "const int wide = 1;")], None, 128),
     "warps4_tm64": ([], None, 64),
     "two_stages": ([const("MAX_STAGES", 4, 2)], None, 128),
     "index_order": ([("rt = ix.order[blockIdx.x / ncol];",
@@ -308,6 +310,10 @@ CHUNK_VARIANTS = {
     "shuffle_each_load": ([(CHUNK_LOADS, CHUNK_LOADS_INTERLEAVED)],
                           None, 128),
 }
+# name: {constant of chunk_cuda: its value for the variant's bindings},
+# on the serving library: the column tile 64 or 128 always
+CHUNK_OVERRIDES = {"tn64": {"COLUMN_TILES": (64, 64)},
+                   "tn128": {"COLUMN_TILES": (128, 128)}}
 # the C-resident cluster launch (cres_cluster_spmm) at R row tiles a
 # cluster, each a copy of the source built with CLUSTER = R (and the
 # patches listed), run through K5a's launcher; "serving" (K3, the owner
@@ -380,9 +386,6 @@ WS_FULL = "      tc::mbar_wait(&full[st], (t / S) & 1);"
 WS_PRODUCTS = ("#pragma unroll\n      for (int kk = 0; kk < KC / 16; ++kk)\n"
                "#pragma unroll\n        for (int i = 0; i < TERMS; ++i)\n"
                "          wgmma_ss")
-# the waves of 128-row tiles that make the warp-specialised grid
-# persistent, in the serving source
-PERSIST_WAVES = 3
 # name: [(text of bsr_spmm.cu, its replacement), ...]
 BSR_VARIANTS = {
     "serving": [],
@@ -393,23 +396,13 @@ BSR_VARIANTS = {
     "index_order": [("const int br = row_order[unit / subs];",
                      "const int br = unit / subs;")],
     "b_plain_loads": [("cudaStream_t s) {\n#define K6_ARGS",
-                       "cudaStream_t s) {\n  b_vec = 0;\n#define K6_ARGS")],
+                       "cudaStream_t s) {\n  b_vec = 0;\n  consumers = 0;\n"
+                       "#define K6_ARGS")],
     "products3": [const("F32_PRODUCTS", 6, 3)],
     # control: each step copies 1 KB of its A planes, not 3-48 KB
     "a_planes_1k": [("mbar_expect_tx(&bar[st], G::A_BYTES);",
                      "mbar_expect_tx(&bar[st], 1024);"),
                     ("G::A_BYTES, &bar[st]);", "1024, &bar[st]);")],
-    # the warp-specialised build's consumers: two whenever B is wider than
-    # one column tile, or one always
-    "ws_waves0": [const("WS_WAVES", 2, 0)],
-    "ws_one_consumer": [const("CONSUMER_WARPGROUPS", 2, 1)],
-    # the warp-specialised grid at 128-row tiles: persistent (a block an
-    # SM walking tiles) wherever the tiles fill the SMs once, or 2, 3 or 4
-    # times; or one block a tile always
-    "ws_persistent": [const("PERSIST_WAVES", PERSIST_WAVES, 1)],
-    **{f"persist_waves{w}": [const("PERSIST_WAVES", PERSIST_WAVES, w)]
-       for w in (2, 3, 4) if w != PERSIST_WAVES},
-    "ws_no_persist": [const("PERSIST_WAVES", PERSIST_WAVES, 1 << 20)],
     # the persistent grid's blocks taking tiles c, c + grid, ... (no
     # reversal on odd rounds)
     "ws_round_robin": [(
@@ -435,6 +428,18 @@ BSR_VARIANTS = {
                    "    tc::cp_async_wait<0>();\n"
                    "    if (t < S - 1) tc::mbar_wait(&bar[st], 0);")],
 }
+# name: {constant of bsr_cuda: its value for the variant's bindings}, on
+# the serving library.  The warp-specialised build's consumers: two
+# whenever B is wider than one column tile, or one always; its grid at
+# 128-row tiles: persistent (a block an SM walking tiles) wherever the
+# tiles fill the SMs once, or 2 or 4 times (3 serves); or one block a tile
+# always
+BSR_OVERRIDES = {"ws_waves0": {"WS_WAVES": 0},
+                 "ws_one_consumer": {"CONSUMER_WARPGROUPS": 1},
+                 "ws_persistent": {"PERSIST_WAVES": 1},
+                 "persist_waves2": {"PERSIST_WAVES": 2},
+                 "persist_waves4": {"PERSIST_WAVES": 4},
+                 "ws_no_persist": {"PERSIST_WAVES": 1 << 20}}
 BSR_CONTROLS = ("products3", "a_planes_1k", "copy_only", "math_only",
                 "ws_copy_only", "ws_math_only")
 # (weight, rows, cols, block, block density, seed, B width): chip_smoke.py's
@@ -496,6 +501,40 @@ def build(name: str, patches: list, nvcc: str, flags, source: str,
                                                      log)],
             "spill_store_bytes": [int(s) for s in re.findall(
                 r"(\d+) bytes spill stores", log)]}
+
+
+@contextlib.contextmanager
+def overridden(module, values: dict):
+    """``module``'s constants set to ``values`` inside the block (a
+    variant of BSR_OVERRIDES or CHUNK_OVERRIDES binding its launches)."""
+    old = {name: getattr(module, name) for name in values}
+    for name, value in values.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def to_build(names: list, overrides: dict) -> list:
+    """The variants of ``names`` whose library is built: each that patches
+    the source, and "serving", whose library a variant that only
+    overrides constants runs."""
+    built = [name for name in names if name not in overrides]
+    if len(built) < len(names) and "serving" not in built:
+        built.insert(0, "serving")
+    return built
+
+
+def add_overrides(libs: dict, names: list, overrides: dict) -> None:
+    """Give each override variant of ``names`` the serving library, with
+    a record of its constants."""
+    for name in names:
+        if name in overrides and "serving" in libs:
+            libs[name] = libs["serving"]
+            print(json.dumps({"name": name, "overrides": overrides[name]}),
+                  flush=True)
 
 
 def profile_host() -> int:
@@ -591,12 +630,14 @@ def chunk_sweep(names: list) -> int:
     for name, (r, patches) in CLUSTER_VARIANTS.items():
         variants[name] = ([const("CLUSTER", chunk_cuda.CLUSTER, r),
                            *patches], None, 128)
-    with ThreadPoolExecutor(len(names)) as pool:
+    variants.update({name: ([], None, 128) for name in CHUNK_OVERRIDES})
+    builds = to_build(names, CHUNK_OVERRIDES)
+    with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(
             lambda name: build(name, variants[name][0],
                                cuda_build.nvcc(), cuda_build.NVCC_FLAGS,
                                chunk_cuda.SOURCE,
-                               os.path.join(OUT, "chunk")), names))
+                               os.path.join(OUT, "chunk")), builds))
     libs = {}
     for rec in built:
         if "path" in rec:
@@ -610,6 +651,7 @@ def chunk_sweep(names: list) -> int:
                     for bb in (False, True) for wide in (False, True)}
         print(json.dumps({k: v for k, v in rec.items()
                           if k not in ("path", "group_rows")}), flush=True)
+    add_overrides(libs, names, CHUNK_OVERRIDES)
     dev = torch.device("cuda")
     for case, width, dtypes in CHUNK_CASES:
         a, b_np = operand(case, width)
@@ -628,19 +670,20 @@ def chunk_sweep(names: list) -> int:
 
         def run(name, operand, issues=None):
             # K3's launcher, or K5a's for a cluster variant, launching this
-            # variant's library
+            # variant's library with its constants
             plan, md = min_dense(name)
             idx = tile_spmm.index_arrays(plan, dev, md)
             chunk_cuda.load = lambda: libs[name]
-            if name not in CLUSTER_VARIANTS:
-                return chunk_cuda.launch("tile_chunk_spmm", idx, operand,
-                                         plan.shape[0], plan.tile_m,
-                                         plan.tile_k, False)
-            sched = cres_spmm.schedule_arrays(plan, dev, md,
-                                              CLUSTER_VARIANTS[name][0])
-            return chunk_cuda.launch_cluster(
-                "cres_chunk_spmm", idx, sched, operand, plan.shape[0],
-                plan.tile_m, plan.tile_k, False, issues)
+            with overridden(chunk_cuda, CHUNK_OVERRIDES.get(name, {})):
+                if name not in CLUSTER_VARIANTS:
+                    return chunk_cuda.launch("tile_chunk_spmm", idx, operand,
+                                             plan.shape[0], plan.tile_m,
+                                             plan.tile_k, False)
+                sched = cres_spmm.schedule_arrays(plan, dev, md,
+                                                  CLUSTER_VARIANTS[name][0])
+                return chunk_cuda.launch_cluster(
+                    "cres_chunk_spmm", idx, sched, operand, plan.shape[0],
+                    plan.tile_m, plan.tile_k, False, issues)
 
         serving = tile_spmm.host_index(
             plan_of("serving"), tile_spmm.dense_min(128, False))
@@ -737,11 +780,12 @@ def bsr_sweep(names: list, cases=None, rounds: int = 1) -> int:
     from tpuspmm_torch.utils.timing import cuda_time_ms
 
     out_dir = os.path.join(OUT, "bsr")
-    with ThreadPoolExecutor(len(names)) as pool:
+    builds = to_build(names, BSR_OVERRIDES)
+    with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(
             lambda name: build(name, BSR_VARIANTS[name], cuda_build.nvcc(),
                                cuda_build.NVCC_FLAGS, bsr_cuda.SOURCE,
-                               out_dir), names))
+                               out_dir), builds))
     libs = {}
     for rec in built:
         print(json.dumps({k: v for k, v in rec.items()
@@ -749,6 +793,7 @@ def bsr_sweep(names: list, cases=None, rounds: int = 1) -> int:
         if "path" in rec:
             libs[rec["name"]] = ctypes.CDLL(rec["path"])
             bsr_cuda._bind(libs[rec["name"]])
+    add_overrides(libs, names, BSR_OVERRIDES)
     dev = torch.device("cuda")
     weights = {}
     for wname, rows, cols, block, density, seed, width in BSR_CASES:
@@ -765,9 +810,20 @@ def bsr_sweep(names: list, cases=None, rounds: int = 1) -> int:
         for tag in ("f32", "bf16"):
             b = b32 if tag == "f32" else b32.to(torch.bfloat16)
 
+            bound = {}
+
             def run(name):
+                # the serving bindings, or an override variant's own,
+                # bound once with its constants on the same arrays
                 bsr_cuda.load = lambda: libs[name]
-                return [bsr_spmm.spmm_bsr_stream(x, b) for x in ws][0]
+                if name not in BSR_OVERRIDES:
+                    return [bsr_spmm.spmm_bsr_stream(x, b) for x in ws][0]
+                if name not in bound:
+                    with overridden(bsr_cuda, BSR_OVERRIDES[name]):
+                        bound[name] = [bsr_cuda.bind(
+                            *bsr_spmm.stream_launch(x, b).keep, b,
+                            x.shape[0], x.block_size) for x in ws]
+                return [launch(b) for launch in bound[name]][0]
 
             want = bsr_spmm.bsr_spmm_plain(w, b)
             scale = float(want.abs().max())
@@ -836,9 +892,9 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    variants = (BSR_VARIANTS if args.bsr
-                else {**CHUNK_VARIANTS, **CLUSTER_VARIANTS} if args.chunk
-                else VARIANTS)
+    variants = ({**BSR_VARIANTS, **BSR_OVERRIDES} if args.bsr
+                else {**CHUNK_VARIANTS, **CHUNK_OVERRIDES, **CLUSTER_VARIANTS}
+                if args.chunk else VARIANTS)
     names = (args.variants.split(",") if args.variants else list(variants))
     if args.bsr:
         return bsr_sweep(names, args.cases.split(",") if args.cases

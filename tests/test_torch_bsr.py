@@ -40,6 +40,7 @@ from tpuspmm_torch.kernels import bsr_cuda, bsr_spmm
 from tpuspmm_torch.kernels.common import pad_b, round_up, split_bf16
 from tpuspmm_torch.ops import oracle, xla
 from tpuspmm_torch.utils.compare import allclose
+from test_torch_tiles import c_params, launched_args
 
 # (rows, cols, block, block density, seed): (8, 128) blocks at 0.4 and at
 # 0.15 (empty block rows), (128, 128) blocks, and a 4 × 4 matrix that packs
@@ -344,14 +345,17 @@ def test_ell_xla_matches_jax(name):
 
 def test_ws_constants_equal_the_source():
     """The warp-specialised build's constants: its producer and consumer
-    warpgroups, its ring's depth at most and the waves that take two
-    consumers; at 128-row sub-tiles a ring of two stages (the step's
-    planes and two unpadded 64 x 64 bf16 B tiles) fits the opt-in shared
-    memory."""
+    warpgroups and its ring's depth at most; the waves of its launch
+    rules are the binding's alone, not the source's; at 128-row sub-tiles
+    a ring of two stages (the step's planes and two unpadded 64 x 64 bf16
+    B tiles) fits the opt-in shared memory."""
     src = _source_constants()
-    for name in ("PRODUCER_WARPGROUPS", "CONSUMER_WARPGROUPS", "WS_STAGES",
-                 "WS_WAVES", "PERSIST_WAVES"):
+    for name in ("PRODUCER_WARPGROUPS", "CONSUMER_WARPGROUPS", "WS_STAGES"):
         assert src[name] == getattr(bsr_cuda, name), name
+    with open(bsr_cuda.SOURCE) as f:
+        text = f.read()
+    for name in ("WS_WAVES", "PERSIST_WAVES", "ws_grid", "sm_count"):
+        assert name not in text, name
     assert src["COLS"] == bsr_cuda.COLUMN_TILE
     # at least two stages fit at 128-row sub-tiles with two consumers
     stage = (bsr_cuda.TERMS * 128 * bsr_cuda.K_CHUNK * 2
@@ -409,14 +413,13 @@ def test_planes_shape_unchanged(nblocks, bh, bw):
                                         (torch.bfloat16, 77, False),
                                         (torch.float32, 512, False)])
 def test_bind_takes_the_build_and_counts_it(dtype, n, ws, monkeypatch):
-    """A binding for a B that takes the warp-specialised build records one
-    ``tpuspmm_torch.bsr.bind_ws`` span; f32 and unaligned bf16 B record
-    none.  Each launch asks for the cp.async staging (b_vec, which with
-    bf16 B is the warp-specialised build) only where B's rows and data
-    are 16-byte aligned.  The card is stood in for: B's device check is
-    the only one that needs it."""
+    """A binding for a B that takes the warp-specialised build records
+    that build in its launch shape, with its consumers; f32 and unaligned
+    bf16 B record the register build and pass no consumers.  Each launch
+    asks for the cp.async staging (b_vec) only where B's rows and data are
+    16-byte aligned, and passes the consumers only then.  The card is
+    stood in for: B's device check is the only one that needs it."""
     from tpuspmm_torch.kernels import cuda_build
-    from tpuspmm_torch.utils import profiling
 
     monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
     monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
@@ -425,20 +428,18 @@ def test_bind_takes_the_build_and_counts_it(dtype, n, ws, monkeypatch):
               (a.indptr, a.indices, bsr_spmm.block_row_order(a),
                bsr_spmm.term_planes(a))]
     b = torch.zeros(a.shape[1], n, dtype=dtype)
-
-    def count():
-        return profiling.snapshot().get(bsr_cuda.BIND_WS_SPAN, (0, 0.0))[0]
-
-    before = count()
     launch = bsr_cuda.bind(*arrays, b, a.shape[0], a.block_size)
-    assert count() - before == int(ws)
-    names = ["indptr", "indices", "row_order", "planes", "b", "b_bf16",
-             "b_vec", "out"]
+    assert launch.shape["build"] == ("warp_specialised" if ws
+                                     else "register")
+    assert (launch.shape["consumers"] > 0) is ws
+    names = c_params(bsr_cuda.SOURCE, bsr_cuda.ENTRY)
     got = dict(zip(names, launch.args(4096, 8192, 0)))
     assert got["b_bf16"] == int(dtype == torch.bfloat16)
     assert got["b_vec"] == int(n * b.element_size() % 16 == 0)
+    assert got["consumers"] == launch.shape["consumers"]
     # B's data off 16 bytes: the plain-load build, whatever the binding
-    assert dict(zip(names, launch.args(4098, 8192, 0)))["b_vec"] == 0
+    off = dict(zip(names, launch.args(4098, 8192, 0)))
+    assert off["b_vec"] == 0 and off["consumers"] == 0
 
 
 # (row sub-tiles, B width, SMs, row tile): DeepSeek-V3's expert gate and
@@ -490,13 +491,12 @@ ENGAGES = [(16, 4096, 128, True), (56, 4096, 128, True),
            (16, 3392, 128, True), (86, 512, 128, False),
            (30, 512, 128, False), (86, 16, 128, False),
            (30, 16, 128, False), (512, 512, 8, False)]
+ENGAGE_IDS = ["dsv3_gate", "dsv3_down", "dsv3_dense_gate", "dsv3_dense_down",
+              "dsv3_gate_w3392", "olmo_gate_w512", "olmo_down_w512",
+              "olmo_gate_w16", "olmo_down_w16", "rt8"]
 
 
-@pytest.mark.parametrize("units,n,rt,want", ENGAGES,
-                         ids=["dsv3_gate", "dsv3_down", "dsv3_dense_gate",
-                              "dsv3_dense_down", "dsv3_gate_w3392",
-                              "olmo_gate_w512", "olmo_down_w512",
-                              "olmo_gate_w16", "olmo_down_w16", "rt8"])
+@pytest.mark.parametrize("units,n,rt,want", ENGAGES, ids=ENGAGE_IDS)
 def test_persistent_grid_engages_by_shape(units, n, rt, want):
     """The grid is persistent where its 128-row tiles fill 132 SMs
     PERSIST_WAVES times: every DeepSeek-V3 call of the cell, no Olmo call
@@ -512,13 +512,12 @@ def test_persistent_grid_engages_by_shape(units, n, rt, want):
                                           (torch.bfloat16, 16, 0),
                                           (torch.float32, 4096, 0)])
 def test_bind_counts_a_persistent_grid(dtype, n, want, monkeypatch):
-    """A binding whose warp-specialised grid is persistent adds its
-    busiest block's tiles to ``tpuspmm_torch.bsr.persistent`` once (16
-    block rows of 128 on 132 SMs: 512 tiles at w4096, 432 at w3392, 4 a
-    block at most); a w16 binding (16 tiles) and an f32-B binding add
-    nothing.  The card is stood in for, as above."""
+    """A binding whose warp-specialised grid is persistent records a grid
+    below its tiles, so that its busiest block walks several (16 block
+    rows of 128 on 132 SMs: 512 tiles at w4096, 432 at w3392, 4 a block at
+    most); a w16 binding (16 tiles, a block each) and an f32-B binding
+    (no grid) walk none.  The card is stood in for, as above."""
     from tpuspmm_torch.kernels import cuda_build
-    from tpuspmm_torch.utils import profiling
 
     monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
     monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
@@ -527,11 +526,41 @@ def test_bind_counts_a_persistent_grid(dtype, n, want, monkeypatch):
               (a.indptr, a.indices, bsr_spmm.block_row_order(a),
                bsr_spmm.term_planes(a))]
     b = torch.zeros(a.shape[1], n, dtype=dtype)
+    shape = bsr_cuda.bind(*arrays, b, a.shape[0], a.block_size).shape
+    tiles, grid = shape["tiles"], shape["grid"]
+    assert (-(-tiles // grid) if grid < tiles else 0) == want
 
-    def count():
-        return profiling.snapshot().get(bsr_cuda.PERSISTENT_COUNT,
-                                        (0, 0.0))[0]
 
-    before = count()
-    bsr_cuda.bind(*arrays, b, a.shape[0], a.block_size)
-    assert count() - before == want
+@pytest.mark.parametrize(
+    "units,n,rt,dtype",
+    [(u, n, rt, torch.bfloat16) for u, n, rt, _ in ENGAGES]
+    + [(16, 4096, 128, torch.float32)], ids=ENGAGE_IDS + ["f32_b"])
+def test_bound_launch_passes_its_shape(units, n, rt, dtype, monkeypatch):
+    """The arguments a bound K6 launch hands the C entry, captured by a
+    stand-in library: the consumers and grid of ``ws_consumers`` and
+    ``ws_grid`` (132 SMs) with a bf16 B whose rows are 16-byte aligned,
+    as the binding records them; 0 consumers (the register build) with
+    f32 B, and at a call whose bf16 B data is not 16-byte aligned.  One
+    stored block a block row of ``rt`` rows, ``units`` block rows."""
+    from tpuspmm_torch.kernels import cuda_build
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
+    arrays = (torch.arange(units + 1, dtype=torch.int32),
+              torch.zeros(units, dtype=torch.int32),
+              torch.arange(units, dtype=torch.int32),
+              torch.zeros(bsr_cuda.planes_shape(units, rt, 128),
+                          dtype=torch.int16))
+    b = torch.zeros(128, n, dtype=dtype)
+    launch = bsr_cuda.bind(*arrays, b, 1, (rt, 128))
+    got = launched_args(launch, b, monkeypatch)
+    if dtype == torch.float32:
+        assert (got["consumers"], launch.shape["build"]) == (0, "register")
+        return
+    want = (bsr_cuda.ws_consumers(units, n, 132),
+            bsr_cuda.ws_grid(units, n, 132, rt))
+    assert (got["consumers"], got["grid"]) == want
+    assert (launch.shape["consumers"], launch.shape["grid"]) == want
+    assert got["b_vec"] == 1 and got["b_bf16"] == 1
+    off = torch.zeros(128 * n + 1, dtype=dtype)[1:].view(128, n)
+    assert launched_args(launch, off, monkeypatch)["consumers"] == 0

@@ -215,7 +215,9 @@ def test_stream_binding_matches_the_source():
 def test_strip_sweep_patches_apply_once():
     """Every variant patch of ``strip_sweep.py`` names text that is in
     its source exactly once (else that variant's build is an error record
-    on the card), the running-sums controls among them."""
+    on the card), the running-sums controls among them; every override
+    variant sets constants that its module has, to values of their type,
+    and shares no name with a patch variant."""
     import os
     import sys
 
@@ -236,3 +238,86 @@ def test_strip_sweep_patches_apply_once():
                 assert text.count(old) == 1, (os.path.basename(source), name)
     assert "running_sums" in strip_sweep.VARIANTS
     assert "running_sums" in strip_sweep.CHUNK_VARIANTS
+    for overrides, module, patched in (
+            (strip_sweep.BSR_OVERRIDES, bsr_cuda, strip_sweep.BSR_VARIANTS),
+            (strip_sweep.CHUNK_OVERRIDES, chunk_cuda,
+             strip_sweep.CHUNK_VARIANTS)):
+        assert overrides and not set(overrides) & set(patched)
+        for name, values in overrides.items():
+            for const, value in values.items():
+                assert const.isupper() and hasattr(module, const), (name,
+                                                                    const)
+                assert type(value) is type(getattr(module, const)), name
+
+
+@pytest.mark.parametrize("name", ["ws_waves0", "ws_one_consumer",
+                                  "ws_persistent", "ws_no_persist", "tn64",
+                                  "tn128"])
+def test_strip_sweep_overrides_reach_the_binding(name, monkeypatch):
+    """An override variant of ``strip_sweep.py`` changes what its bindings
+    hand the C entry on the serving library, and only inside its block:
+    K6's consumers, grid and tiles (16 block rows of 128 on 132 SMs: at
+    w512 and w1024 one consumer and a block a tile, at w4096 two
+    consumers and a persistent grid of 132 blocks over 512 tiles), the
+    tile-owner routine's column tile (3 row tiles at w256: 64 on 132 SMs,
+    128 on 6).  The card is stood in for."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import strip_sweep
+
+    from tpuspmm_torch.formats import tiles
+    from tpuspmm_torch.kernels import bsr_cuda, chunk_cuda, cuda_build
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    if name in strip_sweep.CHUNK_OVERRIDES:
+        rng = np.random.default_rng(3)
+        r, c = rng.integers(0, 300, 900), rng.integers(0, 700, 900)
+        tp = tiles.build_tile_plan(r, c, np.ones(900, np.float32),
+                                   (300, 700))
+        idx = tile_spmm.index_arrays(tp, "cpu", float("inf"))
+        b = torch.zeros(700, 256)
+
+        def tn(sms):
+            monkeypatch.setattr(cuda_build, "sm_count", lambda device: sms)
+            return chunk_cuda.bind("tile_chunk_spmm", idx, b, 300,
+                                   tp.tile_m, tp.tile_k,
+                                   False).shape["column_tile"]
+
+        assert (tn(132), tn(6)) == (64, 128)
+        with strip_sweep.overridden(chunk_cuda,
+                                    strip_sweep.CHUNK_OVERRIDES[name]):
+            want = int(name[2:])
+            assert (tn(132), tn(6)) == (want, want)
+        assert (tn(132), tn(6)) == (64, 128)
+        return
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
+    arrays = (torch.arange(17, dtype=torch.int32),
+              torch.zeros(16, dtype=torch.int32),
+              torch.arange(16, dtype=torch.int32),
+              torch.zeros(bsr_cuda.planes_shape(16, 128, 128),
+                          dtype=torch.int16))
+
+    def shape(n):
+        s = bsr_cuda.bind(*arrays, torch.zeros(128, n, dtype=torch.bfloat16),
+                          1, (128, 128)).shape
+        return s["consumers"], s["grid"], s["tiles"]
+
+    widths = (512, 1024, 4096)
+    serving = {n: shape(n) for n in widths}
+    assert serving == {512: (1, 128, 128), 1024: (1, 256, 256),
+                       4096: (2, 132, 512)}
+    with strip_sweep.overridden(bsr_cuda, strip_sweep.BSR_OVERRIDES[name]):
+        got = {n: shape(n) for n in widths}
+    want = {"ws_waves0": {512: (2, 64, 64), 1024: (2, 128, 128),
+                          4096: (2, 132, 512)},
+            "ws_one_consumer": {512: (1, 128, 128), 1024: (1, 256, 256),
+                                4096: (1, 132, 1024)},
+            "ws_persistent": {512: (1, 128, 128), 1024: (1, 132, 256),
+                              4096: (2, 132, 512)},
+            "ws_no_persist": {512: (1, 128, 128), 1024: (1, 256, 256),
+                              4096: (2, 512, 512)}}[name]
+    assert got == want
+    assert {n: shape(n) for n in widths} == serving

@@ -12,6 +12,7 @@ test shows it does.
 """
 
 import re
+import types
 
 import numpy as np
 import pytest
@@ -445,9 +446,34 @@ def test_routine_constants_match_source():
         assert re.search(rf"const (int|float)\* {name}[,;)]", text), name
 
 
+def c_params(source: str, entry: str) -> list:
+    """The parameter names of the C entry ``entry`` of ``source``."""
+    with open(source) as f:
+        text = f.read()
+    params = re.search(rf"\b{entry}\(([^)]*)\)\s*{{", text).group(1)
+    return [p.split()[-1].lstrip("*") for p in params.split(",")]
+
+
+def launched_args(launch, b, monkeypatch) -> dict:
+    """The arguments that ``launch(b)`` (a ``cuda_build.Launch``) hands its
+    C entry, by the entry's parameter names, captured by a stand-in
+    library; the current device and stream are stood in for, so a CPU
+    tensor takes the place of B."""
+    seen = []
+    lib = types.SimpleNamespace(
+        **{launch.name: lambda *args: seen.append(args) or 0})
+    monkeypatch.setattr(launch.module, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: launch.index)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    launch(b)
+    return dict(zip(c_params(launch.module.SOURCE, launch.name), seen[-1]))
+
+
 def test_bindings_match_the_c_interface():
     """Each C entry's ctypes argument list is as long as its C parameter
-    list (a short one would pass the stream where the SM count goes)."""
+    list (a short one would pass the stream where the column tile
+    goes)."""
     from types import SimpleNamespace
 
     with open(chunk_cuda.SOURCE) as f:
@@ -461,6 +487,31 @@ def test_bindings_match_the_c_interface():
         params = re.search(rf"\b{name}\(([^)]*)\)\s*{{", text).group(1)
         assert len(getattr(lib, name).argtypes) == len(params.split(",")), \
             name
+
+
+@pytest.mark.parametrize("cluster", [False, True], ids=["owner", "cluster"])
+@pytest.mark.parametrize("n,sms", [(256, 132), (256, 6), (256, 7), (77, 1)])
+def test_bound_launch_passes_the_column_tile(n, sms, cluster, monkeypatch):
+    """The column tile that a bound owner-routine or cluster launch hands
+    its C entry, captured by a stand-in library, is ``column_tile`` over
+    the index's real row tiles (3 here; the cluster launch's 2 clusters of
+    2 do not count), as the binding records it: 64 at (256, 132) and
+    (256, 7), 128 at (256, 6) and (77, 1)."""
+    from tpuspmm_torch.kernels import cuda_build
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: sms)
+    _, tp = plans("ragged_empty_tile")
+    md = THRESHOLDS["one_per_k"]
+    idx = tile_spmm.index_arrays(tp, "cpu", md)
+    sched = cres_spmm.schedule_arrays(tp, "cpu", md) if cluster else None
+    b = torch.zeros(tp.shape[1], n)
+    launch = chunk_cuda.bind("tile_chunk_spmm", idx, b, tp.shape[0],
+                             tp.tile_m, tp.tile_k, False, sched)
+    got = launched_args(launch, b, monkeypatch)
+    want = chunk_cuda.column_tile(tp.num_row_tiles, n, sms)
+    assert got["tn"] == launch.shape["column_tile"] == want
+    assert want == (64 if (n, sms) in ((256, 132), (256, 7)) else 128)
 
 
 def test_tile_shapes_the_routine_runs_or_refuses():

@@ -79,13 +79,14 @@
 // consumers share each step's planes over a 128-column tile, which halves
 // the plane bytes a product, and give the tensor cores two chains of
 // dependent wgmmas; a 128-column tile doubles a block row's products a
-// step, so one consumer takes grids that would not fill the SMs WS_WAVES
-// times (Olmo's down weight at w512, every width-16 call).  The products,
-// their order and their fresh accumulator a step are the register build's:
-// the output is the same bits (chip_smoke.py --k6-parent).
+// step, so the binding (kernels/bsr_cuda.py) gives grids of few tiles one
+// consumer (Olmo's down weight at w512, every width-16 call).  The
+// products, their order and their fresh accumulator a step are the
+// register build's: the output is the same bits (chip_smoke.py
+// --k6-parent).
 //
-// Where its grid of 128-row tiles fills the SMs PERSIST_WAVES times, the
-// warp-specialised build is persistent: min(tiles, SMs) blocks, each
+// Where the binding asks for it (kernels/bsr_cuda.py: 128-row tiles, many
+// an SM), the warp-specialised build is persistent: `grid` blocks, each
 // owning one tile of every round of `grid` consecutive tiles, in block
 // order on even rounds and in reverse on odd ones (a static schedule: no
 // counter to reset, one owner a tile; the reversal keeps the blocks given
@@ -159,17 +160,11 @@ constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory per block
 // the warp-specialised build (bf16 B with 16-byte aligned rows): a
 // producer warpgroup and up to CONSUMER_WARPGROUPS consumers, each on its
 // own COLS columns of the block's tile, and a ring of at most WS_STAGES
-// stages.  Two consumers (a 2·COLS-column tile) where B is wider than COLS
-// and the grid of such tiles fills the SMs WS_WAVES times, else one: a
-// block row's owner then has half the products a step, which matters
-// where a few heavy rows set the time
+// stages.  Its consumers and its grid are decided by the caller
+// (kernels/bsr_cuda.py, at the bind) and checked by the entry
 constexpr int PRODUCER_WARPGROUPS = 1;
 constexpr int CONSUMER_WARPGROUPS = 2;
 constexpr int WS_STAGES = 4;
-constexpr int WS_WAVES = 2;
-// the warp-specialised build at 128-row sub-tiles is persistent (a block
-// an SM, each walking tiles) where its tiles fill the SMs this many times
-constexpr int PERSIST_WAVES = 3;
 // row sub-tiles (wgmma's N): the first that divides bh
 constexpr int ROW_TILES[] = {128, 32, 8};
 
@@ -734,24 +729,20 @@ bsr_ws_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
   }
 }
 
-// the blocks of the warp-specialised build's grid for `tiles` tiles of RT
-// rows on `sms` SMs: one an SM, each walking tiles, at 128-row sub-tiles
-// where the tiles fill the SMs PERSIST_WAVES times; else one a tile
-template <int RT>
-long long ws_grid(long long tiles, int sms) {
-  if (RT == ROW_TILES[0] && tiles >= (long long)PERSIST_WAVES * sms)
-    return tiles < sms ? tiles : sms;
-  return tiles;
-}
-
+// the warp-specialised build with C consumers on `grid` blocks, which
+// must be 1 to its tiles
 template <int RT, int C>
 cudaError_t launch_ws_c(const int* indptr, const int* indices,
                         const int* row_order, const uint8_t* planes,
                         const __nv_bfloat16* b, float* out,
                         int num_block_rows, int m, int k, int n, int bh,
-                        int bw, int sms, cudaStream_t stream) {
+                        int bw, int grid, cudaStream_t stream) {
   using G = WsGeo<RT, C>;
   auto kernel = bsr_ws_kernel<RT, C>;
+  const int ncol = (n + G::TN - 1) / G::TN;
+  const long long tiles = (long long)num_block_rows * (bh / RT) * ncol;
+  if (tiles > 0x7fffffffLL || grid < 1 || grid > tiles)
+    return cudaErrorInvalidValue;
   // the kernel's shared-memory limit is raised once on each device, as
   // the register build's
   static std::atomic<unsigned long long> raised{0};
@@ -765,64 +756,33 @@ cudaError_t launch_ws_c(const int* indptr, const int* indices,
     if (err != cudaSuccess) return err;
     raised.fetch_or(bit, std::memory_order_relaxed);
   }
-  const int ncol = (n + G::TN - 1) / G::TN;
-  const long long tiles = (long long)num_block_rows * (bh / RT) * ncol;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)ws_grid<RT>(tiles, sms), G::THREADS, G::SMEM, stream>>>(
+  kernel<<<(unsigned)grid, G::THREADS, G::SMEM, stream>>>(
       indptr, indices, row_order, planes, b, out, m, k, n, bh, bw, ncol,
       (int)tiles);
   return cudaGetLastError();
 }
 
-// the SMs of the current device, read once a device (0 with the error)
-int sm_count(cudaError_t* err) {
-  static std::atomic<int> sms[64];
-  int device;
-  *err = cudaGetDevice(&device);
-  if (*err != cudaSuccess) return 0;
-  int count = device < 64 ? sms[device].load(std::memory_order_relaxed) : 0;
-  if (count) return count;
-  *err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                device);
-  if (*err != cudaSuccess) return 0;
-  if (device < 64) sms[device].store(count, std::memory_order_relaxed);
-  return count;
-}
-
-// two consumers on 2·COLS-column tiles where B is wider than COLS and
-// their tiles fill the SMs WS_WAVES times, else one; the grid: ws_grid
-template <int RT>
-cudaError_t launch_ws(const int* indptr, const int* indices,
-                      const int* row_order, const uint8_t* planes,
-                      const void* b, float* out, int num_block_rows, int m,
-                      int k, int n, int bh, int bw, cudaStream_t stream) {
-  cudaError_t err;
-  const int sms = sm_count(&err);
-  if (!sms) return err;
-  const __nv_bfloat16* bt = static_cast<const __nv_bfloat16*>(b);
-  constexpr int TN2 = COLS * CONSUMER_WARPGROUPS;
-  if (n > COLS && (long long)num_block_rows * (bh / RT) *
-                          ((n + TN2 - 1) / TN2) >=
-                      (long long)WS_WAVES * sms)
-    return launch_ws_c<RT, CONSUMER_WARPGROUPS>(indptr, indices, row_order,
-                                                planes, bt, out,
-                                                num_block_rows, m, k, n, bh,
-                                                bw, sms, stream);
-  return launch_ws_c<RT, 1>(indptr, indices, row_order, planes, bt, out,
-                            num_block_rows, m, k, n, bh, bw, sms, stream);
-}
-
+// consumers > 0: the warp-specialised build with that many (bf16 B with
+// b_vec, the entry checks); else the register build b_vec asks for (bf16
+// B only with plain loads)
 template <int RT>
 cudaError_t launch_rt(const int* indptr, const int* indices,
                       const int* row_order, const uint8_t* planes,
-                      const void* b, int b_bf16, int b_vec, float* out,
-                      int num_block_rows, int m, int k, int n, int bh, int bw,
-                      cudaStream_t s) {
+                      const void* b, int b_bf16, int b_vec, int consumers,
+                      int grid, float* out, int num_block_rows, int m, int k,
+                      int n, int bh, int bw, cudaStream_t s) {
 #define K6_ARGS indptr, indices, row_order, planes, b, out, num_block_rows, \
                 m, k, n, bh, bw, s
-  if (b_bf16)
-    return b_vec ? launch_ws<RT>(K6_ARGS)
-                 : launch<RT, __nv_bfloat16, false>(K6_ARGS);
+  if (consumers) {
+    const __nv_bfloat16* bt = static_cast<const __nv_bfloat16*>(b);
+#define WS_ARGS indptr, indices, row_order, planes, bt, out, num_block_rows, \
+                m, k, n, bh, bw, grid, s
+    return consumers == CONSUMER_WARPGROUPS
+               ? launch_ws_c<RT, CONSUMER_WARPGROUPS>(WS_ARGS)
+               : launch_ws_c<RT, 1>(WS_ARGS);
+#undef WS_ARGS
+  }
+  if (b_bf16) return launch<RT, __nv_bfloat16, false>(K6_ARGS);
   return b_vec ? launch<RT, float, true>(K6_ARGS)
                : launch<RT, float, false>(K6_ARGS);
 #undef K6_ARGS
@@ -837,17 +797,22 @@ extern "C" {
 // the blocks' bf16 term planes in the kernel's layout (bsr_spmm.py::
 // term_planes, 16-byte aligned) and a row-major (k, n) f32 or bf16 B, on
 // `stream`.  b_vec asks for the cp.async staging of B, which needs 16-byte
-// aligned rows; a bf16 B so staged takes the warp-specialised build.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for what the kernel
-// does not take.
+// aligned rows.  consumers (0, 1 or 2) and grid are the warp-specialised
+// build's, which takes a bf16 B with b_vec and consumers > 0, on grid
+// blocks (1 to its tiles); with consumers 0 the register build runs and
+// grid is not read.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for what the kernel does not take.
 int bsr_block_spmm(const void* indptr, const void* indices,
                    const void* row_order, const void* planes, const void* b,
-                   int b_bf16, int b_vec, void* out, int num_block_rows,
-                   int m, int k, int n, int bh, int bw, void* stream) {
+                   int b_bf16, int b_vec, int consumers, int grid, void* out,
+                   int num_block_rows, int m, int k, int n, int bh, int bw,
+                   void* stream) {
   const int size = b_bf16 ? 2 : 4;
   if (num_block_rows <= 0 || n <= 0 || bh <= 0 || bw <= 0 || bh % 8 ||
       bw % KC || (uintptr_t)planes % 16 ||
-      (b_vec && ((uintptr_t)b % 16 || ((long long)n * size) % 16)))
+      (b_vec && ((uintptr_t)b % 16 || ((long long)n * size) % 16)) ||
+      consumers < 0 || consumers > CONSUMER_WARPGROUPS ||
+      (consumers && !(b_bf16 && b_vec)))
     return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(indptr);
   const int* ix = static_cast<const int*>(indices);
@@ -855,16 +820,12 @@ int bsr_block_spmm(const void* indptr, const void* indices,
   const uint8_t* pl = static_cast<const uint8_t*>(planes);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh % ROW_TILES[0] == 0)
-    return (int)launch_rt<ROW_TILES[0]>(p, ix, order, pl, b, b_bf16, b_vec,
-                                        o, num_block_rows, m, k, n, bh, bw,
-                                        s);
-  if (bh % ROW_TILES[1] == 0)
-    return (int)launch_rt<ROW_TILES[1]>(p, ix, order, pl, b, b_bf16, b_vec,
-                                        o, num_block_rows, m, k, n, bh, bw,
-                                        s);
-  return (int)launch_rt<ROW_TILES[2]>(p, ix, order, pl, b, b_bf16, b_vec, o,
-                                      num_block_rows, m, k, n, bh, bw, s);
+#define RT_ARGS p, ix, order, pl, b, b_bf16, b_vec, consumers, grid, o, \
+                num_block_rows, m, k, n, bh, bw, s
+  if (bh % ROW_TILES[0] == 0) return (int)launch_rt<ROW_TILES[0]>(RT_ARGS);
+  if (bh % ROW_TILES[1] == 0) return (int)launch_rt<ROW_TILES[1]>(RT_ARGS);
+  return (int)launch_rt<ROW_TILES[2]>(RT_ARGS);
+#undef RT_ARGS
 }
 
 const char* bsr_spmm_error_string(int code) {

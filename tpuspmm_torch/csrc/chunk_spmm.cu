@@ -32,8 +32,8 @@
 //   - sparse: its nonzeros join a CSR over the output rows (row_ptr, g_col
 //     = global k, g_val), each row's in ascending k-tile; padding slots are
 //     dropped there, once.
-// Block (rt, column tile) owns output rows [rt*tm, +tm) and TN columns (128;
-// 64 when a 128-column grid has fewer blocks than SMs), launched longest
+// Block (rt, column tile) owns output rows [rt*tm, +tm) and TN columns (128
+// or 64, as the caller passes: chunk_cuda.column_tile), launched longest
 // row tile first.  Warp w owns the 16 rows [w*16, +16) of the tile: a
 // block runs ceil(tm / 16) warps, at most 8 (tm <= 128).
 //   1. Dense tiles, ascending k-tile: a ring stages each KC-deep chunk of
@@ -719,23 +719,23 @@ struct ClusterLaunch {
 };
 
 // launch the routine over `units` row-tile places: the owner routine's
-// num_tiles row tiles, or clusters x CLUSTER members.  The column tile
-// follows the real row tiles, so both launches take the same one
+// num_tiles row tiles, or clusters x CLUSTER members, on column tiles of
+// tn columns (NARROW_TN or WIDE_TN, chosen by the caller:
+// chunk_cuda.column_tile)
 template <bool CLUSTERED>
 int launch_routine(TileIndex ix, ClusterSchedule cs, int units, const void* b,
                    int b_bf16, void* out, int num_tiles, int m, int k, int n,
-                   int tm, int tk, int n_dense, int split2, int sms,
+                   int tm, int tk, int n_dense, int split2, int tn,
                    void* stream) {
   const int ncol64 = (n + NARROW_TN - 1) / NARROW_TN;
   if (num_tiles <= 0 || units < num_tiles || m <= 0 || k <= 0 || n <= 0 ||
-      tm <= 0 || tm > MAX_ROWS || tk <= 0 || sms <= 0 ||
+      tm <= 0 || tm > MAX_ROWS || tk <= 0 ||
+      (tn != NARROW_TN && tn != WIDE_TN) ||
       (long long)units * ncol64 > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const int esize = b_bf16 ? 2 : 4;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(b);
-  // column tile: 128, or 64 when a grid of 128-column blocks would leave
-  // SMs idle
-  const int wide = (long long)num_tiles * ((n + WIDE_TN - 1) / WIDE_TN) >= sms;
+  const int wide = tn == WIDE_TN;
   const int vec = (wide ? WIDE_TN : NARROW_TN) / 32;
   const int b_async = addr % 16 == 0 && n % (16 / esize) == 0;
   const int b_vec = addr % (vec * esize) == 0 && n % vec == 0;
@@ -775,8 +775,8 @@ extern "C" {
 // num_tiles row tiles; order, the row tiles by work, most first); B is
 // k x n f32 or bf16 (b_bf16); n_dense the index's dense tiles; split2 != 0
 // runs the verified-only 2-term tier (its index has no dense tile); tk a
-// multiple of 32 wherever the index has a dense tile; tm <= 128; sms the
-// device's SM count.  Returns cudaGetLastError() after the launch.
+// multiple of 32 wherever the index has a dense tile; tm <= 128; tn the
+// column tile, 64 or 128.  Returns cudaGetLastError() after the launch.
 //
 // The one entry of K3 (tile_spmm.py::_kernel, grid (n tile, chunk), out
 // tile stored on first[c] else added) and K4 (csr_vmem.py::_kernel, grid
@@ -788,11 +788,11 @@ int tile_owner_spmm(const int* row_ptr, const int* g_col, const float* g_val,
                     const int* d_ptr, const int* d_kt, const float* d_a,
                     const int* order, const void* b, int b_bf16, void* out,
                     int num_tiles, int m, int k, int n, int tm, int tk,
-                    int n_dense, int split2, int sms, void* stream) {
+                    int n_dense, int split2, int tn, void* stream) {
   return launch_routine<false>(
       {row_ptr, g_col, g_val, d_ptr, d_kt, d_a, order}, ClusterSchedule{},
       num_tiles, b, b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2,
-      sms, stream);
+      tn, stream);
 }
 
 // K5a (cres_spmm.py::_kernel, grid over 8-chunk k-major blocks, each
@@ -810,14 +810,14 @@ int cres_cluster_spmm(const int* row_ptr, const int* g_col,
                       const int* c_order, int* issues, int cluster,
                       int num_clusters, const void* b, int b_bf16, void* out,
                       int num_tiles, int m, int k, int n, int tm, int tk,
-                      int n_dense, int split2, int sms, void* stream) {
+                      int n_dense, int split2, int tn, void* stream) {
   if (cluster != CLUSTER || num_clusters <= 0 ||
       (long long)num_clusters * CLUSTER > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   return launch_routine<true>(
       {row_ptr, g_col, g_val, d_ptr, d_kt, d_a, order},
       {c_rt, c_ptr, s_kt, s_tile, c_order, issues}, num_clusters * CLUSTER,
-      b, b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2, sms,
+      b, b_bf16, out, num_tiles, m, k, n, tm, tk, n_dense, split2, tn,
       stream);
 }
 

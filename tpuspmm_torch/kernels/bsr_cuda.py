@@ -2,24 +2,22 @@
 (csrc/bsr_spmm.cu, ``bsr_block_spmm``: wgmma over bf16 term planes).
 
 Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
-here runs when the module is imported.  Which build serves a B is a
-function of its dtype, width and alignment (``warp_specialised``): a bf16
-B with 16-byte aligned rows takes the warp-specialised build; a binding
-that takes it records the span ``tpuspmm_torch.bsr.bind_ws``, and where
-that build's grid is persistent (``ws_grid``) the counter
-``tpuspmm_torch.bsr.persistent``.
+here runs when the module is imported.  The launch shape is decided here,
+once a binding, and passed to the C entry, which checks it and launches
+it: the build (``warp_specialised``: a bf16 B with 16-byte aligned rows
+takes the warp-specialised build), its consumer warpgroups
+(``ws_consumers``) and its grid (``ws_grid``).  The binding records what
+it passes (``Launch.shape``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import sys
 
 import torch
 
 from tpuspmm_torch.kernels import cuda_build
-from tpuspmm_torch.utils import profiling
 
 ENTRY = "bsr_block_spmm"
 # the source's constants (a CPU test holds them equal): block columns a
@@ -31,20 +29,17 @@ K_CHUNK = 64
 TERMS = 3
 ROW_TILES = (128, 32, 8)
 COLUMN_TILE = 64
-# the warp-specialised build's: producer and consumer warpgroups at most
-# (each consumer on COLUMN_TILE columns), its ring's stages at most, the
-# waves of two-consumer blocks a grid must fill to take them
-# (``ws_consumers``), and the waves of 128-row tiles that make its grid
-# persistent (``ws_grid``)
+# the warp-specialised build's, as in the source: producer and consumer
+# warpgroups at most (each consumer on COLUMN_TILE columns) and its ring's
+# stages at most; then its launch rules' own, which only this module
+# holds: the waves of two-consumer blocks a grid must fill to take them
+# (``ws_consumers``) and of 128-row tiles that make its grid persistent
+# (``ws_grid``)
 PRODUCER_WARPGROUPS = 1
 CONSUMER_WARPGROUPS = 2
 WS_STAGES = 4
 WS_WAVES = 2
 PERSIST_WAVES = 3
-BIND_WS_SPAN = "tpuspmm_torch.bsr.bind_ws"
-# a counter, added once a binding whose warp-specialised grid is
-# persistent: the tiles its busiest block walks
-PERSISTENT_COUNT = "tpuspmm_torch.bsr.persistent"
 
 
 def row_tile(bh: int) -> int:
@@ -68,11 +63,11 @@ def warp_specialised(dtype, n: int, aligned: bool = True) -> bool:
 
 
 def ws_consumers(units: int, n: int, sms: int) -> int:
-    """Consumer warpgroups of the warp-specialised build (the source's
-    ``launch_ws``) for ``units`` row sub-tiles, B of width n and ``sms``
-    SMs: two, on a 2·COLUMN_TILE-column tile, where B is wider than one
-    tile and those tiles fill the SMs WS_WAVES times; else one, which
-    halves a heavy block row's products a step."""
+    """Consumer warpgroups of the warp-specialised build for ``units`` row
+    sub-tiles, B of width n and ``sms`` SMs: two, on a 2·COLUMN_TILE-column
+    tile, where B is wider than one tile and those tiles fill the SMs
+    WS_WAVES times; else one, which halves a heavy block row's products a
+    step."""
     wide = COLUMN_TILE * CONSUMER_WARPGROUPS
     if n > COLUMN_TILE and units * -(-n // wide) >= WS_WAVES * sms:
         return CONSUMER_WARPGROUPS
@@ -82,15 +77,14 @@ def ws_consumers(units: int, n: int, sms: int) -> int:
 def ws_tiles(units: int, n: int, sms: int) -> int:
     """Tiles of the warp-specialised build for ``units`` row sub-tiles and
     B of width n on ``sms`` SMs: units x column tiles of ``ws_consumers``
-    x COLUMN_TILE columns (the source's ``launch_ws_c``)."""
+    x COLUMN_TILE columns (as the source's ``launch_ws_c`` counts them)."""
     return units * -(-n // (COLUMN_TILE * ws_consumers(units, n, sms)))
 
 
 def ws_grid(units: int, n: int, sms: int, rt: int) -> int:
-    """Blocks of the warp-specialised build's grid (the source's
-    ``ws_grid``): at 128-row sub-tiles (``rt``), min(tiles, sms) where the
-    tiles fill the SMs PERSIST_WAVES times, each block walking tiles; else
-    one block a tile."""
+    """Blocks of the warp-specialised build's grid: at 128-row sub-tiles
+    (``rt``), min(tiles, sms) where the tiles fill the SMs PERSIST_WAVES
+    times, each block walking tiles; else one block a tile."""
     tiles = ws_tiles(units, n, sms)
     if rt == ROW_TILES[0] and tiles >= PERSIST_WAVES * sms:
         return min(tiles, sms)
@@ -122,7 +116,7 @@ def vector_staging(b: torch.Tensor) -> bool:
 
 def _bind(lib) -> None:
     fn = getattr(lib, ENTRY)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -168,6 +162,23 @@ def _checked(indptr: torch.Tensor, indices: torch.Tensor,
     return num_block_rows, bh, bw
 
 
+def launch_shape(b: torch.Tensor, num_block_rows: int, bh: int) -> dict:
+    """What a binding for B of b's shape and dtype launches on b's device:
+    the build, and for the warp-specialised build its consumer warpgroups
+    (``ws_consumers``), its grid (``ws_grid``) and its tiles
+    (``ws_tiles``); 0 for each where the register builds take B."""
+    n = int(b.shape[1])
+    if not warp_specialised(b.dtype, n):
+        return {"build": "register", "consumers": 0, "grid": 0, "tiles": 0}
+    rt = row_tile(bh)
+    units = num_block_rows * (bh // rt)
+    sms = cuda_build.sm_count(b.device)
+    return {"build": "warp_specialised",
+            "consumers": ws_consumers(units, n, sms),
+            "grid": ws_grid(units, n, sms, rt),
+            "tiles": ws_tiles(units, n, sms)}
+
+
 def bind(indptr: torch.Tensor, indices: torch.Tensor,
          row_order: torch.Tensor, planes: torch.Tensor, b: torch.Tensor,
          m: int, block_size, counter=None) -> cuda_build.Launch:
@@ -176,12 +187,11 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
     term planes (``planes_shape``, int16, 16-byte aligned; all on b's
     device) for B of b's shape, dtype and device: C (m, n) f32;
     ``counter.launches`` counts its launches.  Checks the arrays once,
-    here, and raises on what the kernel does not take; each launch takes
-    the build its B allows (``vector_staging``, ``warp_specialised``); a
-    binding for a B that takes the warp-specialised build is the span
-    ``tpuspmm_torch.bsr.bind_ws``, and where that build's grid is
-    persistent (``ws_grid``) it adds the tiles its busiest block walks to
-    the counter ``tpuspmm_torch.bsr.persistent``."""
+    here, and raises on what the kernel does not take.  The launch shape
+    (:func:`launch_shape`) is decided here and kept as the launch's
+    ``shape``; a call whose B data is not 16-byte aligned stages B by
+    plain loads (``vector_staging``), which with bf16 B is the register
+    build: it passes 0 consumers."""
     num_block_rows, bh, bw = _checked(indptr, indices, row_order, planes, b,
                                       m, block_size)
     k, n = (int(s) for s in b.shape)
@@ -189,26 +199,18 @@ def bind(indptr: torch.Tensor, indices: torch.Tensor,
     head = tuple(t.data_ptr() for t in keep)
     b_bf16 = int(b.dtype == torch.bfloat16)
     rows_aligned = n * b.element_size() % 16 == 0
+    shape = launch_shape(b, num_block_rows, bh)
+    consumers, grid = shape["consumers"], shape["grid"]
     tail = (num_block_rows, m, k, n, bh, bw)
 
     def args(b_ptr, out_ptr, stream):
         vector = int(rows_aligned and b_ptr % 16 == 0)  # vector_staging(b)
-        return (*head, b_ptr, b_bf16, vector, out_ptr, *tail, stream)
+        return (*head, b_ptr, b_bf16, vector, consumers if vector else 0,
+                grid, out_ptr, *tail, stream)
 
-    ws = warp_specialised(b.dtype, n)
-    with (profiling.span(BIND_WS_SPAN) if ws
-          else contextlib.nullcontext()):
-        launch = cuda_build.Launch(sys.modules[__name__], ENTRY,
-                                   "bsr_spmm_error_string", ENTRY, b, m,
-                                   args, keep, counter)
-        if ws:
-            rt = row_tile(bh)
-            units = num_block_rows * (bh // rt)
-            sms = cuda_build.sm_count(b.device)
-            tiles, grid = ws_tiles(units, n, sms), ws_grid(units, n, sms, rt)
-            if grid < tiles:
-                profiling.count(PERSISTENT_COUNT, -(-tiles // grid))
-        return launch
+    return cuda_build.Launch(sys.modules[__name__], ENTRY,
+                             "bsr_spmm_error_string", ENTRY, b, m, args,
+                             keep, counter, shape)
 
 
 def block_spmm(indptr: torch.Tensor, indices: torch.Tensor,

@@ -72,8 +72,9 @@ def check_shape(tm: int) -> None:
 
 
 def column_tile(num_tiles: int, n: int, sms: int) -> int:
-    """The routine's column tile for a grid (chunk_spmm.cu: launch_routine):
-    128, or 64 when 128-column blocks would be fewer than the SMs."""
+    """The routine's column tile for ``num_tiles`` row tiles, B of width n
+    and ``sms`` SMs, which :func:`bind` passes to the C entry: 128, or 64
+    when 128-column blocks would be fewer than the SMs."""
     wide, narrow = COLUMN_TILES[1], COLUMN_TILES[0]
     return wide if num_tiles * -(-n // wide) >= sms else narrow
 
@@ -143,7 +144,9 @@ def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
     device, or None when serving) counting its multicast B chunks.
     Checks the index and schedule once, here, and raises on what the
     kernel does not take; the C entry refuses a schedule of another R than
-    the build's CLUSTER at the launch."""
+    the build's CLUSTER at the launch.  The column tile
+    (:func:`column_tile`, over the real row tiles, so both launches take
+    the same one) is decided here and kept as the launch's ``shape``."""
     num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
     k, n = (int(s) for s in b.shape)
     keep = tuple(idx[name] for name in INDEX)
@@ -158,15 +161,15 @@ def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
                  clusters)
     name = "tile_owner_spmm" if sched is None else "cres_cluster_spmm"
     b_bf16 = int(b.dtype == torch.bfloat16)
-    tail = (num_tiles, m, k, n, tm, tk, n_dense, int(split2),
-            cuda_build.sm_count(b.device))
+    tn = column_tile(num_tiles, n, cuda_build.sm_count(b.device))
+    tail = (num_tiles, m, k, n, tm, tk, n_dense, int(split2), tn)
 
     def args(b_ptr, out_ptr, stream):
         return (*head, b_ptr, b_bf16, out_ptr, *tail, stream)
 
     return cuda_build.Launch(sys.modules[__name__], name,
                              "chunk_spmm_error_string", entry, b, m, args,
-                             keep, counter)
+                             keep, counter, {"column_tile": tn})
 
 
 def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,

@@ -165,20 +165,24 @@ class Launch:
     launch; and adds one to ``counter.launches`` (where a counter is
     given).  The library is looked up on ``module`` at each call (its
     ``load``), so a sweep that swaps the library swaps it here too;
-    ``keep`` holds every tensor whose pointer the arguments carry."""
+    ``keep`` holds every tensor whose pointer the arguments carry;
+    ``shape`` is the launch shape the binding decided and passes (a dict,
+    or None where the C entry decides it)."""
 
     __slots__ = ("module", "name", "error_string", "entry", "device",
                  "index", "b_shape", "b_dtype", "out_shape", "args", "keep",
-                 "counter")
+                 "counter", "shape")
 
     def __init__(self, module, name: str, error_string: str, entry: str, b,
-                 rows: int, args: Callable, keep: tuple, counter=None):
+                 rows: int, args: Callable, keep: tuple, counter=None,
+                 shape: dict | None = None):
         self.module, self.name = module, name
         self.error_string, self.entry = error_string, entry
         self.device, self.index = b.device, b.device.index
         self.b_shape, self.b_dtype = tuple(b.shape), b.dtype
         self.out_shape = (rows, int(b.shape[1]))
         self.args, self.keep, self.counter = args, keep, counter
+        self.shape = shape
 
     def refuse(self, b) -> None:
         """Raise for a B this launch does not take (the fast check in
