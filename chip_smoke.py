@@ -4,13 +4,15 @@ engines on one NVIDIA GPU.
 
 Run from the repository root:
 
-    python3 chip_smoke.py [--k6-parent DIR]
+    python3 chip_smoke.py [--k6-parent DIR] [--gather-parent DIR]
 
 ``--k6-parent DIR``: a checkout of an earlier commit (``git archive``
 unpacked into a git-ignored directory, e.g. ``_archive/parent``), whose
 K6 phase 4b runs in a subprocess of its own on the same operands; every
 bf16-B output of K6 must equal that commit's bit for bit, and each
-binding's consumers and grid that commit's.
+binding's consumers and grid that commit's.  ``--gather-parent DIR``
+(such a checkout too): phase 4c's tile-owner launches run from it as
+well, and must give its outputs bit for bit.
 
 Prints one JSON object per phase:
 
@@ -21,10 +23,11 @@ Prints one JSON object per phase:
    each, started together; ptxas's registers and spills of
    every kernel of the three, and the tensor-core instructions (HMMA,
    HGMMA) in their SASS (cuobjdump), which must not be zero (K6: HGMMA,
-   wgmma); no tile-owner or K6 kernel may spill, ptxas may not serialise
-   any K6 kernel's wgmma (C7514), and the occupancy
-   calculator must fit two tile-owner blocks an SM and at least one
-   C-resident cluster on the card (its count, per build, in the record);
+   wgmma); no tile-owner (gather build included) or K6 kernel may spill,
+   ptxas may not serialise any K6 kernel's wgmma (C7514), and the
+   occupancy calculator must fit two tile-owner blocks an SM, at least one
+   C-resident cluster on the card, and GATHER_SM_WARPS warps of the gather
+   build an SM (its count, per build, in the record);
 3. kernels: on large_25605 at B width 256 (f32 and bf16 B), the panel and
    pair kernels' entry points against their plain PyTorch versions on the
    same plan at "highest" and "split2", the gate against the f64 oracle
@@ -57,8 +60,11 @@ Prints one JSON object per phase:
    chunks than the owners;
    every launch at full width, its columns (the first 128 where B is
    wider than 256) against the plain versions on the same columns at
-   "split" and "split2"; every build of the routine (64 or 128 columns,
-   dense tiles or none, f32 or bf16 B) must be among those held; times
+   "split" and "split2"; each record carries its binding's launch shape,
+   which must be the gather build exactly where the index has no dense
+   tile; every build (the owner routine and its cluster launch at 64 and
+   128 columns, the gather build at one and two passes, f32 and bf16 B)
+   must be among those held; times
    at full width (entry point, and graph-replayed device time), plain
    times at the headline; per operand the plan's chunks, tiles, dense
    tiles, sentinel shares, slabs, residency, the column tile, bound, the
@@ -103,6 +109,16 @@ Prints one JSON object per phase:
    With ``--k6-parent``, every bf16-B output of the phase equals the
    parent's bit for bit, and each of its bindings' consumers and grid
    equal those the parent's rules give;
+4c. the gather build: K3 and K5a, each in a subprocess, on the operands
+   of GATHER_OPERANDS (large_25605 at widths 256, 512, 16, 77 and 130,
+   large_21074 and medium_2048 at 256, large_25605 with empty rows, f32
+   and bf16 B; and weight (a), which has dense tiles): at the gate, K5a
+   equal to K3, each binding the gather build exactly where the index has
+   no dense tile, each record with its launch shape and device times warm
+   and cold.  With ``--gather-parent``, every output equals the parent's
+   bit for bit, weight (a)'s bindings pass the parent's column tile and
+   scalar arguments, and no gather build is slower than the parent's
+   routine, warm or cold;
 5. serving path: launch counts zeroed, then only ``tpuspmm_torch.spmm``
    runs: large_25605 w256 in f32 and bf16, one record in bench.py's shape;
    then the corpus dirs large_15120, large_21074, medium_2048 and
@@ -519,6 +535,190 @@ def k6_parent_equal(parent: str, outputs: dict) -> dict:
                   "parent": theirs["shapes"][key],
                   "ours": [shape["consumers"], shape["grid"]]}
             for key, (_, _, got, shape) in outputs.items()}
+
+
+# a checkout of an earlier commit whose tile-owner routine gives phase 4c's
+# outputs bit for bit (``--gather-parent DIR``), or None
+GATHER_PARENT = (sys.argv[sys.argv.index("--gather-parent") + 1]
+                 if "--gather-parent" in sys.argv else None)
+# phase 4c: (operand, B width, B dtypes).  Every index but weight (a)'s has
+# no dense tile, so K3 and K5a take the gather build; "holes" is the
+# headline with its first row tile, every fifth row and its last row
+# emptied; weight (a) (dense tiles) keeps the owner routine and its
+# cluster launch
+GATHER_OPERANDS = ((HEADLINE, 256, ("f32", "bf16")),
+                   (HEADLINE, 512, ("f32", "bf16")),
+                   ("large_21074", 256, ("f32", "bf16")),
+                   ("medium_2048", 256, ("f32", "bf16")),
+                   (HEADLINE, 16, ("f32", "bf16")),
+                   (HEADLINE, 77, ("f32", "bf16")),
+                   (HEADLINE, 130, ("f32", "bf16")),
+                   ("holes", 256, ("f32", "bf16")),
+                   ("pruned_a", 512, ("f32", "bf16")),
+                   ("pruned_a", 1024, ("f32",)))
+# phase 4c's launches, run in a subprocess from a checkout (argv: the
+# operands' file, the outputs' file), the same script for this commit and
+# the parent: per operand, K3's and K5a's launch (``tiles_launch``,
+# ``cres_launch``) on a 128 x 128 tile plan, its output, its binding's
+# ``shape`` and scalar arguments, and its device time in CUDA graphs:
+# warm (one B, in L2 after the first replay) and cold (copies of B, twice
+# the L2 in all, launched in turn), each the least of three
+TILES_SCRIPT = """
+import math, sys
+import torch
+from tpuspmm_torch.formats import CSR, tiles
+from tpuspmm_torch.kernels import cres_spmm, tile_spmm
+from tpuspmm_torch.utils.timing import cuda_time_ms
+
+
+def graph_ms(fn, calls):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return min(cuda_time_ms(graph.replay) for _ in range(3)) / calls
+
+
+binds = {"tile": tile_spmm.tiles_launch, "cres": cres_spmm.cres_launch}
+l2 = torch.cuda.get_device_properties(0).L2_cache_size
+res = {}
+for key, c in torch.load(sys.argv[1]).items():
+    a = CSR(indptr=c["indptr"].numpy(), indices=c["indices"].numpy(),
+            values=c["values"].numpy(), shape=tuple(c["shape"]))
+    plan = tiles.plan_from_container(a, tile_m=128, tile_k=128)
+    b = c["b"].cuda()
+    count = min(128, max(2, math.ceil(2 * l2 / (b.numel()
+                                                * b.element_size()))))
+    copies = [b] + [b.clone() for _ in range(count - 1)]
+    for entry, bind in binds.items():
+        launch = bind(plan, b)
+        out = launch(b)
+        for copy in copies:
+            launch(copy)
+        res[key, entry] = {
+            "out": out.cpu(), "shape": getattr(launch, "shape", None),
+            "scalars": [int(x) for x in launch.args(0, 0, 0)[-10:-1]],
+            "warm_ms": graph_ms(lambda: launch(b), 1),
+            "cold_ms": graph_ms(lambda: [launch(x) for x in copies],
+                                len(copies))}
+    del copies
+torch.save(res, sys.argv[2])
+"""
+
+
+def tiles_in_checkout(checkout: str, inputs: str, out: str) -> dict:
+    """TILES_SCRIPT's results, run from ``checkout`` (which builds its own
+    library under its build/) on the operands saved in ``inputs``."""
+    checkout = os.path.abspath(checkout)
+    res = subprocess.run([sys.executable, "-c", TILES_SCRIPT, inputs, out],
+                         cwd=checkout,
+                         env=dict(os.environ, PYTHONPATH=checkout),
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"the tile-owner routine's launches from "
+                           f"{checkout} failed:\n{res.stderr[-3000:]}")
+    return torch.load(out)
+
+
+def gather_phase(parent: str | None) -> None:
+    """Phase 4c: the operands of GATHER_OPERANDS (B drawn uniform in
+    [-1, 1) from seed 24, bf16 B rounded from it) launched by K3 and K5a
+    in a subprocess (TILES_SCRIPT); every output at the gate against the
+    f64 oracle, K5a's equal to K3's bit for bit, each binding's recorded
+    build the gather build exactly where the index has no dense tile.
+    With ``parent``, the same script from the parent's checkout: every
+    output equal to the parent's bit for bit, each dense index's binding
+    passing the parent's column tile and scalar arguments, and no gather
+    build's device time above the parent routine's, warm or cold (5%
+    allowed for the card's noise).  Emits ``gather_vs_parent`` per
+    operand."""
+    import scipy.sparse
+
+    from tpuspmm_torch.data import data_dir
+    from tpuspmm_torch.formats import BSR, CSR, convert, tiles
+    from tpuspmm_torch.kernels import tile_spmm
+    from tpuspmm_torch.ops import oracle
+    from tpuspmm_torch.utils.compare import allclose
+
+    def operand(name):
+        if name == "pruned_a":
+            w = BSR.random_blocks(*PRUNED["a"])
+            return CSR.from_scipy(w.to_scipy().tocsr())
+        a = convert.load_sparse(data_dir(HEADLINE if name == "holes"
+                                         else name), "csr")
+        if name != "holes":
+            return a
+        sp = a.to_scipy().tocsr()
+        empty = np.zeros(sp.shape[0], bool)
+        empty[:128] = empty[::5] = True
+        empty[-1] = True
+        sp.data[np.repeat(empty, np.diff(sp.indptr))] = 0
+        sp.eliminate_zeros()
+        return CSR.from_scipy(scipy.sparse.csr_matrix(sp))
+
+    work = os.path.join(REPO, "build", "gather_phase")
+    os.makedirs(work, exist_ok=True)
+    inputs, cases = {}, {}
+    for name, width, dtypes in GATHER_OPERANDS:
+        a = operand(name)
+        plan = tiles.plan_from_container(a, tile_m=128, tile_k=128)
+        dense = int(tile_spmm.host_index(
+            plan, tile_spmm.dense_min(128, False))["tile_dense"].sum())
+        b32 = torch.from_numpy(np.random.default_rng(24).uniform(
+            -1, 1, (a.shape[1], width)).astype(np.float32))
+        for tag in dtypes:
+            b = b32 if tag == "f32" else b32.to(torch.bfloat16)
+            key = f"{name} w{width} {tag}"
+            inputs[key] = {"indptr": torch.from_numpy(a.indptr),
+                           "indices": torch.from_numpy(a.indices),
+                           "values": torch.from_numpy(a.values),
+                           "shape": list(a.shape), "b": b}
+            cases[key] = (a, b, dense)
+    path = os.path.join(work, "in.pt")
+    torch.save(inputs, path)
+    ours = tiles_in_checkout(REPO, path, os.path.join(work, "ours.pt"))
+    theirs = (tiles_in_checkout(parent, path, os.path.join(work,
+                                                           "parent.pt"))
+              if parent else None)
+    for key, (a, b, dense) in cases.items():
+        ref = oracle.spmm_scipy_oracle(a, b.float().numpy())
+        rec = {"operand": key, "rows": int(a.shape[0]), "nnz": int(a.nnz),
+               "empty_rows": int((np.diff(a.indptr) == 0).sum()),
+               "dense_tiles": dense}
+        k3, k5 = ours[key, "tile"], ours[key, "cres"]
+        check(torch.equal(k3["out"], k5["out"]),
+              f"{key}: K5a's output equals K3's")
+        check(allclose(k3["out"], ref), f"{key}: gate vs f64 oracle")
+        for entry, build in (("tile", "owner"), ("cres", "cluster")):
+            mine = ours[key, entry]
+            want = build if dense else "gather"
+            check(mine["shape"]["build"] == want,
+                  f"{key} {entry}: binds the {want} build ({mine['shape']})")
+            rec[entry] = {"launch_shape": mine["shape"],
+                          "warm_ms": mine["warm_ms"],
+                          "cold_ms": mine["cold_ms"]}
+            if theirs is None:
+                continue
+            old = theirs[key, entry]
+            same = bool(torch.equal(old["out"], mine["out"]))
+            rec[entry].update(bit_equal_parent=same,
+                              parent_shape=old["shape"],
+                              parent_warm_ms=old["warm_ms"],
+                              parent_cold_ms=old["cold_ms"])
+            check(same, f"{key} {entry}: output equals the parent's bit for "
+                        "bit")
+            if dense:
+                check(old["shape"]["column_tile"]
+                      == mine["shape"]["column_tile"]
+                      and old["scalars"] == mine["scalars"],
+                      f"{key} {entry}: the parent's column tile and "
+                      f"arguments ({old['scalars']}, {mine['scalars']})")
+            else:
+                for t in ("warm_ms", "cold_ms"):
+                    check(mine[t] <= 1.05 * old[t],
+                          f"{key} {entry}: the gather build's {t} "
+                          f"{mine[t]} is not above the parent's {old[t]}")
+        emit("gather_vs_parent", parent=parent, **rec)
 
 
 # phase 10e: one MoE layer of the DeepSeek-V3 configuration at its
@@ -1400,6 +1600,11 @@ def main() -> int:
             bb, wide, s2)
         for bb in (False, True) for wide in (False, True)
         for s2 in (False, True)}
+    # the gather build: blocks of GATHER_WARPS warps an SM holds at once
+    gather_occupancy = {
+        f"{'bf16' if bb else 'f32'}_B_passes{p}": chunk_cuda.gather_blocks(
+            bb, p, chunk_cuda.GATHER_WARPS)
+        for bb in (False, True) for p in ((1,) if bb else (1, 2))}
     emit("build", sources=[os.path.relpath(lib.source, REPO)
                            for lib in libraries + host_libraries],
          seconds=time.perf_counter() - t0,
@@ -1409,6 +1614,7 @@ def main() -> int:
          chunk_blocks_per_sm=chunk_occupancy,
          cres_cluster=chunk_cuda.CLUSTER,
          cres_max_active_clusters=cluster_occupancy,
+         gather_blocks_per_sm=gather_occupancy,
          bsr_tensor_core_sass=bsr_tc, bsr_ptxas=bsr_ptxas,
          stream_ptxas=stream_ptxas)
     for name, tc_ops, kernels, report_ in (
@@ -1435,6 +1641,10 @@ def main() -> int:
           f"the stream kernel builds without spills ({stream_ptxas})")
     check(min(chunk_occupancy.values()) >= 2,
           f"two tile-owner blocks fit an SM ({chunk_occupancy})")
+    check(min(gather_occupancy.values()) * chunk_cuda.GATHER_WARPS
+          >= chunk_cuda.GATHER_SM_WARPS,
+          f"{chunk_cuda.GATHER_SM_WARPS} warps of the gather build fit an "
+          f"SM ({gather_occupancy})")
     check(min(cluster_occupancy.values()) >= 1,
           f"a cluster of {chunk_cuda.CLUSTER} C-resident blocks fits the "
           f"card ({cluster_occupancy})")
@@ -1662,6 +1872,12 @@ def main() -> int:
                                                                  "kloop")),
     }
     clustered = ("cres", "cres_kloop")  # the cluster launch
+    # each entry's launch bound to a plan, whose shape each record carries
+    tile_launches = {
+        "tile": tile_spmm.tiles_launch, "staged": csr_vmem.staged_launch,
+        "cres": cres_spmm.cres_launch,
+        "cres_kloop": lambda p, b: cres_spmm.cres_launch(p, b,
+                                                         schedule="kloop")}
     for counter, *_ in tile_entries.values():
         counter.launches = 0
     hbm = report.hbm_gbps(gpu) * 1e9
@@ -1763,6 +1979,15 @@ def main() -> int:
                 got = fn(tplan, b, "split", **kw)
                 again = fn(tplan, b, "split")
                 torch.cuda.synchronize()
+                # an index with no dense tile takes the gather build
+                shape = tile_launches[name](tplan, b).shape
+                rec["launch_shape"] = shape
+                rec["column_tile"] = shape.get("column_tile")
+                want_build = ("gather" if not op["dense_tiles"] else
+                              "cluster" if name in clustered else "owner")
+                check(shape["build"] == want_build,
+                      f"{name} {op_name} w{n_op} {tag} binds the "
+                      f"{want_build} build ({shape})")
                 check(counter.launches == before + 2,
                       f"{name} launch counter rose")
                 if kw:
@@ -1830,12 +2055,19 @@ def main() -> int:
             del k3_out
             if tag == "bf16":
                 del b
-    # every build of the routine was held to its plain version: each
-    # column tile, with and without dense tiles, with f32 and bf16 B
-    held = {(r["column_tile"], r["dense_tiles"] > 0, r["b_dtype"])
-            for r in tile_stats.values()}
-    check(len(held) == 8, f"phase 4 runs every build of the tile-owner "
-                          f"routine ({sorted(held)})")
+    # every build was held to its plain version: the owner routine and its
+    # cluster launch at each column tile, and the gather build at one and
+    # two passes, with f32 and bf16 B (bf16 B takes one pass)
+    held = {(r["launch_shape"]["build"],
+             r["launch_shape"].get("column_tile",
+                                   r["launch_shape"].get("passes")),
+             r["b_dtype"]) for r in tile_stats.values()}
+    builds = ({(build, tn, tag) for build in ("owner", "cluster")
+               for tn in chunk_cuda.COLUMN_TILES for tag in ("f32", "bf16")}
+              | {("gather", 1, "f32"), ("gather", 2, "f32"),
+                 ("gather", 1, "bf16")})
+    check(builds <= held, f"phase 4 runs every build of the tile-owner "
+                          f"routine ({sorted(builds - held)} missing)")
     tile_window = {name: counter.launches
                    for name, (counter, *_) in tile_entries.items()}
     emit("tile_kernel_launches", **tile_window)
@@ -2068,6 +2300,9 @@ def main() -> int:
     del k6_bf16
     bsr_window = k6.launches
     emit("bsr_kernel_launches", bsr_stream=bsr_window)
+
+    # ---- 4c. the gather build against the parent's routine --------------
+    gather_phase(GATHER_PARENT)
 
     # ---- 5. serving path: tpuspmm_torch.spmm only -----------------------
     serving = {"panel": panel_spmm.spmm_panel, "pair": pair_spmm.spmm_pair,

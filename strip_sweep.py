@@ -56,12 +56,22 @@ timed as above.
 CHUNK_VARIANTS patch its source (ring depth, launch order, gathered rows
 in flight) or change what the host hands it (the dense path's threshold,
 with every tile gathered and every tile dense as controls; a 64-row tile,
-which runs 4 warps a block), and CHUNK_OVERRIDES set ``chunk_cuda``'s
-column tiles for the variant's bindings (64 or 128 always), on
-CHUNK_CASES.
+which runs 4 warps a block; for the gather build, which an index with no
+dense tile takes, its loads in flight, the warps an SM's registers are
+budgeted for, and its round's order), and CHUNK_OVERRIDES set
+``chunk_cuda``'s column tiles (64 or 128 always) or the gather build's
+rows a warp, warps a block and f32 passes for the variant's bindings, on
+CHUNK_CASES; ROUTINE_CONTROLS launch the owner routine or its cluster
+launch whatever the index holds, as the parent commit did.
 Each variant runs K3's entry on the tile plan, is held against the plain
-version on a 128-column slice of B (1e-4·max|C|) and timed as above
-(``ms``: graph replay; ``call_ms``: the wrapper).  CLUSTER_VARIANTS run
+version on a 128-column slice of B (1e-4·max|C|), must give the serving
+bits where it shares its sum order, and is timed in CUDA graphs: ``ms``
+one launch on one B (warm), ``cold_ms`` a launch on each of B's copies
+twice the L2 in turn (``rotation``), ``call_ms`` the wrapper; with
+``--rounds`` the capture order turns by one each round and each time is
+the median of the rounds' least.  Each record holds each variant's
+``Launch.shape``; each build record ptxas's registers and spills by
+kernel.  CLUSTER_VARIANTS run
 the C-resident kernels' cluster launch (K5a's) at 2, 4 and 8 row tiles a
 cluster against "serving", the owner routine (R = 1), with controls
 (the launch at R = 1; at R = 2 with the fetch after the products, with
@@ -290,6 +300,16 @@ CHUNK_RUNNING_F32 = """              // B's terms in order, each used as it is m
                   tc::mma_bf16(acc[nt], af[ia], b0, b1);
               }
 """
+# the gather build's round: its values shuffled before its loads and held
+# in registers while they fly (the "gather_early_values" control)
+GATHER_EARLY_VALUES = [
+    ("      Raw<TB, VEC> raw[NZ][PASSES];\n",
+     "      float vv[NZ];\n      Raw<TB, VEC> raw[NZ][PASSES];\n"),
+    ("        const int kr = __shfl_sync(FULL, my_col, (j + u) & 31);\n",
+     "        const int kr = __shfl_sync(FULL, my_col, (j + u) & 31);\n"
+     "        vv[u] = __shfl_sync(FULL, my_val, (j + u) & 31);\n"),
+    ("        const float v = __shfl_sync(FULL, my_val, (j + u) & 31);\n",
+     "        const float v = vv[u];\n")]
 CHUNK_VARIANTS = {
     "serving": ([], None, 128),
     "running_sums": ([(CHUNK_FRESH_BF16, CHUNK_RUNNING_BF16),
@@ -309,11 +329,41 @@ CHUNK_VARIANTS = {
                     None, 128),
     "shuffle_each_load": ([(CHUNK_LOADS, CHUNK_LOADS_INTERLEAVED)],
                           None, 128),
+    # the gather build: 16-byte loads a lane issues before their FMAs,
+    # and the warps an SM's registers are budgeted for
+    "gather_loads2": ([const("GATHER_LOADS", 4, 2)], None, 128),
+    "gather_loads6": ([const("GATHER_LOADS", 4, 6)], None, 128),
+    "gather_loads8": ([const("GATHER_LOADS", 4, 8)], None, 128),
+    "gather_sm16": ([const("GATHER_SM_WARPS", 32, 16)], None, 128),
+    "gather_sm24": ([const("GATHER_SM_WARPS", 32, 24)], None, 128),
+    "gather_sm48": ([const("GATHER_SM_WARPS", 32, 48)], None, 128),
+    "gather_loads8_sm16": ([const("GATHER_LOADS", 4, 8),
+                            const("GATHER_SM_WARPS", 32, 16)], None, 128),
+    # half the loads a round where B's rows are not 16-byte aligned
+    "gather_unaligned_loads2": ([(
+        "constexpr int NZ = GATHER_LOADS / PASSES;",
+        "constexpr int NZ = (ALIGNED ? GATHER_LOADS : GATHER_LOADS / 2)"
+        " / PASSES;")], None, 128),
+    # the round's values shuffled with its columns, before the loads
+    "gather_early_values": (GATHER_EARLY_VALUES, None, 128),
 }
 # name: {constant of chunk_cuda: its value for the variant's bindings},
-# on the serving library: the column tile 64 or 128 always
+# on the serving library: the column tile 64 or 128 always; the gather
+# build's rows a warp (where one a warp would not fill one wave; 2 always),
+# warps a block, and one pass over f32 B
 CHUNK_OVERRIDES = {"tn64": {"COLUMN_TILES": (64, 64)},
-                   "tn128": {"COLUMN_TILES": (128, 128)}}
+                   "tn128": {"COLUMN_TILES": (128, 128)},
+                   "gather_rows1": {"GATHER_ROWS": 1},
+                   "gather_rows2": {"GATHER_ROWS": 2, "GATHER_SM_WARPS": 0},
+                   "gather_rows4": {"GATHER_ROWS": 4},
+                   "gather_warps4": {"GATHER_WARPS": 4},
+                   "gather_rows1_warps4": {"GATHER_ROWS": 1,
+                                           "GATHER_WARPS": 4},
+                   "gather_one_pass": {"GATHER_F32_PASSES": 1}}
+# controls on the serving library: an index's launch by the owner routine
+# (False) or its cluster launch (True) whatever the index holds, as the
+# parent commit launched an index with no dense tile
+ROUTINE_CONTROLS = {"owner_routine": False, "cluster_routine": True}
 # the C-resident cluster launch (cres_cluster_spmm) at R row tiles a
 # cluster, each a copy of the source built with CLUSTER = R (and the
 # patches listed), run through K5a's launcher; "serving" (K3, the owner
@@ -373,9 +423,14 @@ CLUSTER_CONTROLS = ("cluster1_no_bulk", "cluster2_no_bulk")
 CHUNK_CASES = (("large_25605", 256, ("f32", "bf16")),
                ("pruned_a", 512, ("f32", "bf16")),
                ("pruned_a", 1024, ("f32", "bf16")),
-               ("medium_4096", None, ("f32",)),
-               ("medium_2048", None, ("f32",)),
-               ("random_2048", 1024, ("f32", "bf16")))
+               ("medium_4096", None, ("f32", "bf16")),
+               ("medium_2048", None, ("f32", "bf16")),
+               ("random_2048", 1024, ("f32", "bf16")),
+               ("large_25605", 512, ("f32", "bf16")),
+               ("large_25605", 16, ("f32", "bf16")),
+               ("large_25605", 77, ("f32", "bf16")),
+               ("large_25605", 130, ("f32", "bf16")),
+               ("large_21074", 256, ("f32", "bf16")))
 # the serving ring's refill of a stage, inside its step loop
 RING_REFILL = ("    if (t + S - 1 < steps) issue(t + S - 1);\n"
               "    tc::cp_async_commit();\n")
@@ -500,7 +555,8 @@ def build(name: str, patches: list, nvcc: str, flags, source: str,
             "registers": [int(r) for r in re.findall(r"Used (\d+) registers",
                                                      log)],
             "spill_store_bytes": [int(s) for s in re.findall(
-                r"(\d+) bytes spill stores", log)]}
+                r"(\d+) bytes spill stores", log)],
+            "kernels": re.findall(r"Compiling entry function '(\w+)'", log)}
 
 
 @contextlib.contextmanager
@@ -616,10 +672,19 @@ def gate_ratio(result, a, b) -> float:
                         initial=0.0))
 
 
-def chunk_sweep(names: list) -> int:
-    """Build and time CHUNK_VARIANTS and CLUSTER_VARIANTS on CHUNK_CASES
-    (see the module docstring); prints one JSON line per variant build and
-    one per (case, B dtype)."""
+def rotation(b: torch.Tensor) -> list:
+    """b and copies of it, at least twice the card's L2 in all (2 to 128
+    tensors), launched in turn so that each launch reads B from HBM."""
+    l2 = torch.cuda.get_device_properties(b.device).L2_cache_size
+    count = min(128, max(2, math.ceil(2 * l2 / (b.numel()
+                                                * b.element_size()))))
+    return [b] + [b.clone() for _ in range(count - 1)]
+
+
+def chunk_sweep(names: list, rounds: int = 1) -> int:
+    """Build and time CHUNK_VARIANTS, CHUNK_OVERRIDES, ROUTINE_CONTROLS
+    and CLUSTER_VARIANTS on CHUNK_CASES (see the module docstring); prints
+    one JSON line per variant build and one per (case, B dtype)."""
     from tpuspmm_torch.formats import tiles
     from tpuspmm_torch.kernels import (chunk_cuda, cres_spmm, cuda_build,
                                        tile_spmm)
@@ -630,8 +695,9 @@ def chunk_sweep(names: list) -> int:
     for name, (r, patches) in CLUSTER_VARIANTS.items():
         variants[name] = ([const("CLUSTER", chunk_cuda.CLUSTER, r),
                            *patches], None, 128)
-    variants.update({name: ([], None, 128) for name in CHUNK_OVERRIDES})
-    builds = to_build(names, CHUNK_OVERRIDES)
+    on_serving = {**CHUNK_OVERRIDES, **ROUTINE_CONTROLS}
+    variants.update({name: ([], None, 128) for name in on_serving})
+    builds = to_build(names, on_serving)
     with ThreadPoolExecutor(len(builds)) as pool:
         built = list(pool.map(
             lambda name: build(name, variants[name][0],
@@ -643,15 +709,21 @@ def chunk_sweep(names: list) -> int:
         if "path" in rec:
             libs[rec["name"]] = ctypes.CDLL(rec["path"])
             chunk_cuda._bind(libs[rec["name"]])
+            chunk_cuda.load = lambda: libs[rec["name"]]
             if rec["name"] in CLUSTER_VARIANTS:
-                chunk_cuda.load = lambda: libs[rec["name"]]
                 rec["max_active_clusters"] = {
                     f"{'bf16' if bb else 'f32'}_B_tn{128 if wide else 64}":
                     chunk_cuda.max_active_clusters(bb, wide, False)
                     for bb in (False, True) for wide in (False, True)}
+            rec["gather_blocks_per_sm"] = {
+                f"{'bf16' if bb else 'f32'}_B_passes{p}_warps{w}":
+                chunk_cuda.gather_blocks(bb, p, w)
+                for bb in (False, True) for p in ((1,) if bb else (1, 2))
+                for w in (4, 8)}
         print(json.dumps({k: v for k, v in rec.items()
                           if k not in ("path", "group_rows")}), flush=True)
     add_overrides(libs, names, CHUNK_OVERRIDES)
+    add_overrides(libs, names, ROUTINE_CONTROLS)
     dev = torch.device("cuda")
     for case, width, dtypes in CHUNK_CASES:
         a, b_np = operand(case, width)
@@ -668,22 +740,39 @@ def chunk_sweep(names: list) -> int:
             takes = math.isfinite(tile_spmm.dense_min(plan.tile_k, False))
             return plan, per_k * plan.tile_k if takes else math.inf
 
-        def run(name, operand, issues=None):
-            # K3's launcher, or K5a's for a cluster variant, launching this
-            # variant's library with its constants
+        bound = {}
+
+        def launch_of(name, operand, issues=None):
+            # K3's binding, or K5a's for a cluster variant, with this
+            # variant's constants (a routine control: the owner routine's
+            # or the cluster launch's, whatever the index holds), bound
+            # once a B shape and dtype (with issues: each time)
+            key = (name, operand.dtype, tuple(operand.shape))
+            if issues is None and key in bound:
+                return bound[key]
             plan, md = min_dense(name)
             idx = tile_spmm.index_arrays(plan, dev, md)
-            chunk_cuda.load = lambda: libs[name]
+            args = (operand, plan.shape[0], plan.tile_m, plan.tile_k, False)
+            sched = None
+            if name in CLUSTER_VARIANTS or ROUTINE_CONTROLS.get(name):
+                sched = cres_spmm.schedule_arrays(
+                    plan, dev, md, CLUSTER_VARIANTS[name][0]
+                    if name in CLUSTER_VARIANTS else None)
+            entry = "tile_chunk_spmm" if sched is None else "cres_chunk_spmm"
             with overridden(chunk_cuda, CHUNK_OVERRIDES.get(name, {})):
-                if name not in CLUSTER_VARIANTS:
-                    return chunk_cuda.launch("tile_chunk_spmm", idx, operand,
-                                             plan.shape[0], plan.tile_m,
-                                             plan.tile_k, False)
-                sched = cres_spmm.schedule_arrays(plan, dev, md,
-                                                  CLUSTER_VARIANTS[name][0])
-                return chunk_cuda.launch_cluster(
-                    "cres_chunk_spmm", idx, sched, operand, plan.shape[0],
-                    plan.tile_m, plan.tile_k, False, issues)
+                if name in ROUTINE_CONTROLS:
+                    launch = chunk_cuda._routine_launch(entry, idx, *args,
+                                                        sched)
+                else:
+                    launch = chunk_cuda.bind(entry, idx, *args, sched,
+                                             issues)
+            if issues is None:
+                bound[key] = launch
+            return launch
+
+        def run(name, operand, issues=None):
+            chunk_cuda.load = lambda: libs[name]
+            return launch_of(name, operand, issues)(operand)
 
         serving = tile_spmm.host_index(
             plan_of("serving"), tile_spmm.dense_min(128, False))
@@ -694,9 +783,9 @@ def chunk_sweep(names: list) -> int:
             rec = {"case": case, "b": tag, "width": int(b.shape[1]),
                    "nnz": int(a.nnz), "tiles": len(serving["tile_nnz"]),
                    "dense_tiles": int(serving["tile_dense"].sum()),
-                   "err": {}, "gate_ratio": {}, "ms": {}, "call_ms": {},
-                   "same_bits": {}, "issues": {}, "want_issues": {},
-                   "b_panel_bytes": {}}
+                   "shape": {}, "err": {}, "gate_ratio": {}, "ms": {},
+                   "cold_ms": {}, "call_ms": {}, "same_bits": {},
+                   "issues": {}, "want_issues": {}, "b_panel_bytes": {}}
             plains = {}
             for name in libs:
                 tm = variants[name][2]
@@ -710,6 +799,16 @@ def chunk_sweep(names: list) -> int:
                 rec["gate_ratio"][name] = gate_ratio(got, a, b_slice)
             if "serving" in libs:
                 want = run("serving", b)
+                for name in libs:
+                    rec["shape"][name] = launch_of(name, b).shape
+                    if name not in on_serving and not name.startswith(
+                            "gather_"):
+                        continue
+                    # one index, one sum order: the gather build's
+                    # variants and the serving library's give the serving
+                    # bits
+                    rec["same_bits"][name] = bool(torch.equal(run(name, b),
+                                                              want))
                 for name in CLUSTER_VARIANTS:
                     if name not in libs:
                         continue
@@ -724,27 +823,49 @@ def chunk_sweep(names: list) -> int:
                     rec["want_issues"][name] = traffic["multicast_issues"]
                     rec["b_panel_bytes"][name] = traffic["b_panel_bytes"]
                 del want
-            graphs = {}
-            for name in libs:
-                run(name, b)  # the index on the device before capture
-                graphs[name] = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graphs[name]):
-                    run(name, b)
-            torch.cuda.synchronize()
-            times = {name: [] for name in libs}
-            calls = {name: [] for name in libs}
-            for name in list(libs) + list(libs)[::-1]:
-                times[name].append(cuda_time_ms(graphs[name].replay))
-                calls[name].append(cuda_time_ms(lambda: run(name, b)))
-            rec["ms"] = {k: min(v) for k, v in times.items()}
-            rec["call_ms"] = {k: min(v) for k, v in calls.items()}
+            # device times: each variant's launch on one B (warm: B in L2
+            # after the first) and on B's rotation in turn (cold), both
+            # captured in CUDA graphs; each round captures the variants in
+            # an order rotated by one (the first captured reads fast) and
+            # times them there and back; ms / cold_ms are the median over
+            # the rounds of each round's least
+            copies = rotation(b)
+            order = list(libs)
+            times = {name: ([], [], []) for name in order}
+            for r in range(rounds):
+                turn = order[r % len(order):] + order[:r % len(order)]
+                warm, cold = {}, {}
+                for name in turn:
+                    run(name, b)  # the index on the device before capture
+                    warm[name] = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(warm[name]):
+                        run(name, b)
+                    cold[name] = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(cold[name]):
+                        for c in copies:
+                            run(name, c)
+                torch.cuda.synchronize()
+                seen = {name: ([], [], []) for name in turn}
+                for name in turn + turn[::-1]:
+                    seen[name][0].append(cuda_time_ms(warm[name].replay))
+                    seen[name][1].append(cuda_time_ms(cold[name].replay)
+                                         / len(copies))
+                    seen[name][2].append(cuda_time_ms(lambda: run(name, b)))
+                for name in turn:
+                    for got, mine in zip(times[name], seen[name]):
+                        got.append(min(mine))
+                del warm, cold
+            for name, (ms, cold_ms, call_ms) in times.items():
+                rec["ms"][name] = float(np.median(ms))
+                rec["cold_ms"][name] = float(np.median(cold_ms))
+                rec["call_ms"][name] = float(np.median(call_ms))
             rec["ok"] = (all(e <= PLAIN_TOL for e in rec["err"].values())
                          and all(rec["same_bits"].values())
                          and all(rec["issues"][v] == rec["want_issues"][v]
                                  for v in rec["issues"]
                                  if v not in CLUSTER_CONTROLS))
             print(json.dumps(rec), flush=True)
-            del graphs, plains
+            del copies, plains
     return 0
 
 
@@ -881,7 +1002,10 @@ def main() -> int:
                          "(default: all)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="with --bsr: time the variants this many times "
-                         "there and back, each the least (default 1)")
+                         "there and back, each the least; with --chunk: "
+                         "capture and time them this many rounds, the "
+                         "capture order rotated by one a round, each the "
+                         "median of the rounds' least (default 1)")
     ap.add_argument("--profile-host", action="store_true",
                     help="only profile the host side of 200 serves of "
                          "large_25605 w256 with bf16 B (cProfile)")
@@ -893,14 +1017,15 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     variants = ({**BSR_VARIANTS, **BSR_OVERRIDES} if args.bsr
-                else {**CHUNK_VARIANTS, **CHUNK_OVERRIDES, **CLUSTER_VARIANTS}
+                else {**CHUNK_VARIANTS, **CHUNK_OVERRIDES, **ROUTINE_CONTROLS,
+                      **CLUSTER_VARIANTS}
                 if args.chunk else VARIANTS)
     names = (args.variants.split(",") if args.variants else list(variants))
     if args.bsr:
         return bsr_sweep(names, args.cases.split(",") if args.cases
                          else None, args.rounds)
     if args.chunk:
-        return chunk_sweep(names)
+        return chunk_sweep(names, args.rounds)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(
             lambda name: build(name, VARIANTS[name], cuda_build.nvcc(),

@@ -259,8 +259,9 @@ def test_strip_sweep_overrides_reach_the_binding(name, monkeypatch):
     K6's consumers, grid and tiles (16 block rows of 128 on 132 SMs: at
     w512 and w1024 one consumer and a block a tile, at w4096 two
     consumers and a persistent grid of 132 blocks over 512 tiles), the
-    tile-owner routine's column tile (3 row tiles at w256: 64 on 132 SMs,
-    128 on 6).  The card is stood in for."""
+    tile-owner routine's column tile (3 row tiles at w256, every tile
+    dense: 64 on 132 SMs, 128 on 6; an index with no dense tile takes the
+    gather build, which has none).  The card is stood in for."""
     import os
     import sys
 
@@ -277,7 +278,7 @@ def test_strip_sweep_overrides_reach_the_binding(name, monkeypatch):
         r, c = rng.integers(0, 300, 900), rng.integers(0, 700, 900)
         tp = tiles.build_tile_plan(r, c, np.ones(900, np.float32),
                                    (300, 700))
-        idx = tile_spmm.index_arrays(tp, "cpu", float("inf"))
+        idx = tile_spmm.index_arrays(tp, "cpu", 1.0)
         b = torch.zeros(700, 256)
 
         def tn(sms):
@@ -321,3 +322,59 @@ def test_strip_sweep_overrides_reach_the_binding(name, monkeypatch):
                               4096: (2, 512, 512)}}[name]
     assert got == want
     assert {n: shape(n) for n in widths} == serving
+
+
+# the gather build's shape on a 300-row index with no dense tile at f32
+# w256, on 1 and on 132 SMs: (rows a warp, warps, passes, grid)
+GATHER_SERVING = {1: (2, 8, 2, [19, 1]), 132: (1, 8, 2, [38, 1])}
+GATHER_WANT = {
+    "gather_rows1": {1: (1, 8, 2, [38, 1]), 132: (1, 8, 2, [38, 1])},
+    "gather_rows2": {1: (2, 8, 2, [19, 1]), 132: (2, 8, 2, [19, 1])},
+    "gather_rows4": {1: (4, 8, 2, [10, 1]), 132: (1, 8, 2, [38, 1])},
+    "gather_warps4": {1: (2, 4, 2, [38, 1]), 132: (1, 4, 2, [75, 1])},
+    "gather_rows1_warps4": {1: (1, 4, 2, [75, 1]),
+                            132: (1, 4, 2, [75, 1])},
+    "gather_one_pass": {1: (2, 8, 1, [19, 2]), 132: (1, 8, 1, [38, 2])}}
+
+
+@pytest.mark.parametrize("name", list(GATHER_WANT))
+def test_strip_sweep_gather_overrides_reach_the_binding(name, monkeypatch):
+    """A gather override of ``strip_sweep.py --chunk`` changes the shape
+    that ``chunk_cuda.bind`` hands ``gather_spmm`` for an index with no
+    dense tile (300 rows, f32 B w256), only inside its block: rows a warp
+    (one where a warp a row fits the SMs in one wave, else 2), warps a
+    block, passes over f32 B.  The card is stood in for."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import strip_sweep
+
+    from tpuspmm_torch.formats import tiles
+    from tpuspmm_torch.kernels import chunk_cuda, cuda_build
+
+    assert set(GATHER_WANT) == {n for n in strip_sweep.CHUNK_OVERRIDES
+                                if n.startswith("gather_")}
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    rng = np.random.default_rng(3)
+    r, c = rng.integers(0, 300, 900), rng.integers(0, 700, 900)
+    tp = tiles.build_tile_plan(r, c, np.ones(900, np.float32), (300, 700))
+    idx = tile_spmm.index_arrays(tp, "cpu", float("inf"))
+    b = torch.zeros(700, 256)
+
+    def shapes():
+        got = {}
+        for sms in (1, 132):
+            monkeypatch.setattr(cuda_build, "sm_count", lambda device: sms)
+            s = chunk_cuda.bind("tile_chunk_spmm", idx, b, 300, tp.tile_m,
+                                tp.tile_k, False).shape
+            got[sms] = (s["rows_per_warp"], s["warps"], s["passes"],
+                        s["grid"])
+        return got
+
+    assert shapes() == GATHER_SERVING
+    with strip_sweep.overridden(chunk_cuda,
+                                strip_sweep.CHUNK_OVERRIDES[name]):
+        assert shapes() == GATHER_WANT[name]
+    assert shapes() == GATHER_SERVING

@@ -444,6 +444,16 @@ def test_routine_constants_match_source():
     assert (const("NARROW_TN"), const("WIDE_TN")) == chunk_cuda.COLUMN_TILES
     for name in chunk_cuda.INDEX:  # the C interface's index arrays
         assert re.search(rf"const (int|float)\* {name}[,;)]", text), name
+    # the gather build's limits, and the shape the binding picks inside them
+    assert const("GATHER_WARPS_MAX") == chunk_cuda.GATHER_WARPS_MAX
+    assert const("GATHER_MAX_ROWS") == chunk_cuda.GATHER_MAX_ROWS
+    assert const("GATHER_SM_WARPS") == chunk_cuda.GATHER_SM_WARPS
+    assert 1 <= chunk_cuda.GATHER_WARPS <= chunk_cuda.GATHER_WARPS_MAX
+    assert 1 <= chunk_cuda.GATHER_ROWS <= chunk_cuda.GATHER_MAX_ROWS
+    assert chunk_cuda.GATHER_F32_PASSES in (1, 2)
+    assert chunk_cuda.GATHER_PASS_BYTES == 32 * 16
+    assert c_params(chunk_cuda.SOURCE, "gather_spmm")[:3] == list(
+        chunk_cuda.GATHER_INDEX)
 
 
 def c_params(source: str, entry: str) -> list:
@@ -478,9 +488,9 @@ def test_bindings_match_the_c_interface():
 
     with open(chunk_cuda.SOURCE) as f:
         text = f.read()
-    names = ("tile_owner_spmm", "cres_cluster_spmm",
+    names = ("tile_owner_spmm", "cres_cluster_spmm", "gather_spmm",
              "chunk_spmm_blocks_per_sm", "cres_cluster_max_active",
-             "chunk_spmm_error_string")
+             "gather_blocks_per_sm", "chunk_spmm_error_string")
     lib = SimpleNamespace(**{name: SimpleNamespace() for name in names})
     chunk_cuda._bind(lib)
     for name in names:
@@ -512,6 +522,121 @@ def test_bound_launch_passes_the_column_tile(n, sms, cluster, monkeypatch):
     want = chunk_cuda.column_tile(tp.num_row_tiles, n, sms)
     assert got["tn"] == launch.shape["column_tile"] == want
     assert want == (64 if (n, sms) in ((256, 132), (256, 7)) else 128)
+
+
+def bound_on_stand_in(threshold, cluster, n, dtype, split2, monkeypatch):
+    """(launch, its tile index, B) for ragged_empty_tile's plan at
+    ``threshold``, bound by ``chunk_cuda.bind`` as K3 (or, with
+    ``cluster``, as K5a over its cluster schedule) for a (k, n) B of
+    ``dtype`` on the CPU, the card's checks and SM count (132) stood in
+    for."""
+    from tpuspmm_torch.kernels import cuda_build
+
+    monkeypatch.setattr(cuda_build, "check_b", lambda entry, b: None)
+    monkeypatch.setattr(cuda_build, "sm_count", lambda device: 132)
+    _, tp = plans("ragged_empty_tile")
+    idx = tile_spmm.index_arrays(tp, "cpu", threshold)
+    sched = (cres_spmm.schedule_arrays(tp, "cpu", threshold) if cluster
+             else None)
+    b = torch.zeros(tp.shape[1], n, dtype=dtype)
+    entry = "cres_chunk_spmm" if cluster else "tile_chunk_spmm"
+    launch = chunk_cuda.bind(entry, idx, b, tp.shape[0], tp.tile_m,
+                             tp.tile_k, split2, sched)
+    return launch, idx, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [16, 77, 256, 512])
+@pytest.mark.parametrize("cluster", [False, True], ids=["owner", "cluster"])
+def test_index_with_no_dense_tile_binds_the_gather_build(cluster, n, dtype,
+                                                         monkeypatch):
+    """An index with no dense tile, bound by the owner entry (K3) or the
+    cluster entry (K5a), launches ``gather_spmm`` over the index's CSR in
+    the shape ``gather_shape`` gives (132 SMs), as the binding records it
+    on ``Launch.shape``; the arguments, captured by a stand-in library,
+    are the C entry's parameters one for one."""
+    launch, idx, b = bound_on_stand_in(THRESHOLDS["all_sparse"], cluster, n,
+                                       dtype, False, monkeypatch)
+    m, k = 300, 700
+    bf16 = dtype == torch.bfloat16
+    want = chunk_cuda.gather_shape(m, n, bf16, 132)
+    assert launch.name == "gather_spmm" and launch.shape == want
+    assert want["build"] == "gather"
+    got = launched_args(launch, b, monkeypatch)
+    assert list(got) == c_params(chunk_cuda.SOURCE, "gather_spmm")
+    assert [got[name] for name in chunk_cuda.GATHER_INDEX] == [
+        idx[name].data_ptr() for name in chunk_cuda.GATHER_INDEX]
+    assert (got["m"], got["k"], got["n"], got["b_bf16"]) == (m, k, n, bf16)
+    assert (got["rows_per_warp"], got["warps"], got["passes"],
+            [got["grid_x"], got["grid_y"]]) == (
+        want["rows_per_warp"], want["warps"], want["passes"], want["grid"])
+
+
+@pytest.mark.parametrize("split2", [False, True], ids=["dense", "split2"])
+@pytest.mark.parametrize("cluster", [False, True], ids=["owner", "cluster"])
+def test_dense_index_and_split2_bind_the_routine(cluster, split2,
+                                                 monkeypatch):
+    """An index with a dense tile (one nonzero per k row makes a tile
+    dense here), and any index at "split2" (which has none), bind the
+    owner routine (``tile_owner_spmm``) or the cluster launch
+    (``cres_cluster_spmm``) with the arguments the parent commit passed:
+    the index's tiles and dense tiles, the tier and the column tile."""
+    threshold = (tile_spmm.dense_min(128, True) if split2
+                 else THRESHOLDS["one_per_k"])
+    launch, idx, b = bound_on_stand_in(threshold, cluster, 256,
+                                       torch.float32, split2, monkeypatch)
+    name = "cres_cluster_spmm" if cluster else "tile_owner_spmm"
+    tn = chunk_cuda.column_tile(3, 256, 132)
+    assert launch.name == name
+    assert launch.shape == {"build": "cluster" if cluster else "owner",
+                            "column_tile": tn}
+    got = launched_args(launch, b, monkeypatch)
+    assert len(got) == len(c_params(chunk_cuda.SOURCE, name))
+    assert [got[key] for key in chunk_cuda.INDEX] == [
+        idx[key].data_ptr() for key in chunk_cuda.INDEX]
+    n_dense = idx["d_kt"].numel()
+    assert (n_dense > 0) is not split2
+    assert (got["num_tiles"], got["m"], got["k"], got["n"], got["tm"],
+            got["tk"], got["n_dense"], got["split2"], got["tn"]) == (
+        3, 300, 700, 256, 128, 128, n_dense, int(split2), tn)
+
+
+# (m, n, B dtype): the gather build's shape on 132 SMs, worked by hand
+GATHER_SHAPES = {(6300, 256, "f32"): (2, 2, [394, 1]),
+                 (6300, 256, "bf16"): (2, 1, [394, 1]),
+                 (6300, 512, "f32"): (2, 2, [394, 2]),
+                 (6300, 512, "bf16"): (2, 1, [394, 2]),
+                 (6300, 16, "f32"): (2, 1, [394, 1]),
+                 (6300, 128, "f32"): (2, 1, [394, 1]),
+                 (28, 77, "f32"): (1, 1, [4, 1]),
+                 (28, 512, "bf16"): (1, 1, [4, 2]),
+                 (1, 16, "bf16"): (1, 1, [1, 1])}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [16, 77, 128, 256, 512])
+@pytest.mark.parametrize("m", [1, 28, 6300])
+def test_gather_grid_rule(m, n, dtype):
+    """The gather build's launch shape: a pass covers 128 f32 or 256 bf16
+    columns, two passes a warp over f32 B wider than one; the grid covers
+    the m rows and n columns with no block or column span to spare; one
+    row a warp where a warp a row and span fits 132 SMs in one wave
+    (GATHER_SM_WARPS an SM), else GATHER_ROWS; GATHER_WARPS a block.
+    The shapes of GATHER_SHAPES are worked by hand."""
+    shape = chunk_cuda.gather_shape(m, n, dtype == "bf16", 132)
+    rows, warps, passes = (shape["rows_per_warp"], shape["warps"],
+                           shape["passes"])
+    grid_x, grid_y = shape["grid"]
+    cols = passes * (256 if dtype == "bf16" else 128)
+    assert warps == chunk_cuda.GATHER_WARPS
+    assert passes == (2 if dtype == "f32" and n > 128 else 1)
+    assert (grid_x - 1) * warps * rows < m <= grid_x * warps * rows
+    assert (grid_y - 1) * cols < n <= grid_y * cols
+    assert rows == (1 if m * grid_y <= 132 * chunk_cuda.GATHER_SM_WARPS
+                    else chunk_cuda.GATHER_ROWS)
+    if (m, n, dtype) in GATHER_SHAPES:
+        assert (rows, passes, shape["grid"]) == GATHER_SHAPES[m, n, dtype]
 
 
 def test_tile_shapes_the_routine_runs_or_refuses():

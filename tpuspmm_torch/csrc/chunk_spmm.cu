@@ -11,6 +11,9 @@
 //   cres_chunk_spmm        <- tpuspmm/kernels/cres_spmm.py::_kernel (K5a)
 //   cres_kloop_chunk_spmm  <- tpuspmm/kernels/cres_spmm.py::_kernel_kloop
 //     (K5b; both through the C entry cres_cluster_spmm)
+// and any of the four, on an index with no dense tile at "split" /
+// "highest", through the gather build (C entry gather_spmm, below;
+// chunk_cuda.bind picks the build and its launch shape).
 // Each TPU kernel densifies a chunk with one-hot matmuls on the MXU (Mosaic
 // could not lower an in-kernel gather) and adds the product into an output
 // block that later grid steps revisit: K3 through first[c], K4 across
@@ -83,6 +86,24 @@
 // the index has no dense tile, so there is no panel to share: the launch
 // runs the gather phase alone.
 //
+// The gather build (gather_kernel) replaces the TPU kernels' one-hot
+// densify of gathered chunks wherever the index has no dense tile (at
+// "split" / "highest"; large_25605 and the other corpus operands have
+// none): no shared memory, no cluster, and warps shaped for loads in
+// flight rather than for mma.sync.  A warp owns 1 or 2 output rows and
+// walks all of B's width for them: a lane loads 16 bytes of a B row a
+// nonzero (4 f32 or 8 bf16 columns; two passes over f32 B wider than 128
+// columns, their columns in registers), so each (column, value) is read
+// and shuffled once a row and each B row is read as one run of 512 bytes
+// or more.  Registers capped at 64 hold 32 warps an SM, each with
+// GATHER_LOADS 16-byte loads a lane in flight: 64 KB of B loads an SM, where
+// the owner routine's gather phase held 12-24 KB (16-row warps, 8-byte
+// lanes, 12 warps an SM at large_25605 w256).  What bounds it is B's bytes
+// from HBM: 26.2 / 13.1 MB of f32 / bf16 B at large_25605 w256, read about
+// once, as the output's 6.5 MB is written once.  The sum order is the
+// owner routine's where no tile is dense (0, then fmaf over the row's
+// nonzeros in CSR order), so the two give the same bits.
+//
 // Tiers: "split" / "highest" take both paths (f32 FMAs when gathered, the
 // 6- or 3-product ladder on dense tiles: at least as faithful as the TPU's
 // 3-term split and HIGHEST passes).  "split2" reproduces the TPU's
@@ -91,10 +112,11 @@
 // matmul per term), added at the row's end; its index has no dense tile.
 // bf16 B is converted to f32 exactly.
 //
-// What bounds it on this card (PERF.md §5-6): gathered tiles move one B
-// row (TN columns) from L2 per nonzero and column tile -- no reuse across
-// nonzeros, but every warp of every block in flight with UNROLL loads
-// each (2.3 TB/s on large_25605 with f32 B); dense tiles move one A chunk
+// What bounds the owner routine on this card (PERF.md §5-6): gathered tiles
+// move one B row (TN columns) from L2 per nonzero and column tile -- no
+// reuse across nonzeros, with UNROLL loads in flight a warp (on an index
+// with no dense tile the gather build keeps more in flight, in half the
+// time at large_25605 w256); dense tiles move one A chunk
 // per (row tile, k-tile, column tile) and one B chunk per owner or per
 // cluster, and are bound by the ring and the term ladder's products (10x
 // the bf16 floor with f32 B on a pruned weight).  The cluster cuts the B
@@ -139,6 +161,15 @@ constexpr int UNROLL = 8;       // gathered B rows a warp loads ahead
 // 0.4480 / 0.4482; no dense tile (large_25605 w256): 0.0379 / 0.0384 /
 // 0.0376 / 0.0383 (strip_sweep.py --chunk, NVIDIA H100 80GB HBM3, 700 W)
 constexpr int CLUSTER = 2;
+// the gather build (gather_kernel): warps of a block at most, the warps an
+// SM is to hold at once (its registers are capped to fit them), 16-byte B
+// loads a lane issues before their FMAs, and output rows of a warp at most
+// (chunk_cuda.GATHER_WARPS_MAX / GATHER_MAX_ROWS; the binding picks each
+// launch's rows a warp, warps a block and passes)
+constexpr int GATHER_WARPS_MAX = 8;
+constexpr int GATHER_SM_WARPS = 32;
+constexpr int GATHER_LOADS = 4;
+constexpr int GATHER_MAX_ROWS = 16;
 constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory per block
 constexpr int SM_SMEM = 233472;     // shared memory of one SM
 constexpr unsigned FULL = 0xffffffffu;
@@ -643,6 +674,195 @@ tile_owner_kernel(TileIndex ix, ClusterSchedule cs, const TB* __restrict__ b,
   while (cur < rows) end_row();
 }
 
+// 16 bytes of B row r from column col (VEC16 = 16 / sizeof(TB) columns;
+// col a multiple of VEC16), zero past n.  ALIGNED (B's address and its
+// row stride are multiples of 16 bytes, so a lane's 16 bytes lie wholly
+// inside or outside the row): one 16-byte load.  Else by align, the
+// largest of 8 and 4 that divides both: two 8-byte or four 4-byte loads,
+// and one element at a time for bf16 rows of odd width or the row's last
+// columns.  The aligned build keeps no register for the other paths.
+template <typename TB>
+constexpr int VEC16 = 16 / (int)sizeof(TB);
+
+__device__ __forceinline__ void set_word(Raw<float, 4>& v, int w,
+                                         uint32_t x) {
+  v.x[w] = __uint_as_float(x);
+}
+__device__ __forceinline__ void set_word(Raw<__nv_bfloat16, 8>& v, int w,
+                                         uint32_t x) {
+  v.x[w] = x;
+}
+
+template <typename TB, bool ALIGNED>
+__device__ __forceinline__ void load_b16(Raw<TB, VEC16<TB>>& v, const TB* r,
+                                         int col, int n, int align) {
+  constexpr int VEC = VEC16<TB>;
+  if constexpr (ALIGNED) {
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (col < n) x = __ldg(reinterpret_cast<const uint4*>(r + col));
+    set_word(v, 0, x.x), set_word(v, 1, x.y);
+    set_word(v, 2, x.z), set_word(v, 3, x.w);
+    return;
+  }
+  if (col + VEC <= n) {
+    if (align == 8) {
+      const uint2* p = reinterpret_cast<const uint2*>(r + col);
+      const uint2 x = __ldg(p), y = __ldg(p + 1);
+      set_word(v, 0, x.x), set_word(v, 1, x.y);
+      set_word(v, 2, y.x), set_word(v, 3, y.y);
+      return;
+    }
+    if (align == 4) {
+      const unsigned int* p = reinterpret_cast<const unsigned int*>(r + col);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) set_word(v, w, __ldg(p + w));
+      return;
+    }
+  }
+  if constexpr (sizeof(TB) == 4) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      v.x[e] = col + e < n ? __ldg(reinterpret_cast<const float*>(r) + col +
+                                   e)
+                           : 0.f;
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(r);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int c = col + 2 * w;
+      v.x[w] = (c < n ? (uint32_t)__ldg(h + c) : 0u) |
+               (c + 1 < n ? (uint32_t)__ldg(h + c + 1) << 16 : 0u);
+    }
+  }
+}
+
+// The gather build (gather_spmm): an index with no dense tile.  Warp w owns
+// the rows_per_warp output rows [w * rows_per_warp, +rows_per_warp) and,
+// in PASSES passes of 32 lanes x 16 bytes, the PASSES * 32 * VEC16
+// columns of its column span (blockIdx.y).  It walks its rows' CSR range
+// as one stream, as the gather phase above does: the lanes load 32
+// (column, value) pairs at once (the next 32 while these are used) and
+// broadcast them with shuffles; each round issues GATHER_LOADS 16-byte
+// loads a lane (GATHER_LOADS / PASSES nonzeros) back to back, then their
+// FMAs; a row is stored once, when the stream passes its end.  An output
+// element starts at 0 and takes fmaf(val, b, acc) over its row's
+// nonzeros in CSR order: the owner routine's bits where no tile is dense.
+// ALIGNED: B's rows are 16-byte aligned (load_b16).
+template <typename TB, int PASSES, bool ALIGNED>
+__global__ void __launch_bounds__(GATHER_WARPS_MAX * 32,
+                                  GATHER_SM_WARPS / GATHER_WARPS_MAX)
+gather_kernel(const int* __restrict__ row_ptr, const int* __restrict__ g_col,
+              const float* __restrict__ g_val, const TB* __restrict__ b,
+              float* __restrict__ out, int m, int n, int rows_per_warp,
+              int b_align, int c_vec) {
+  constexpr int VEC = VEC16<TB>;
+  constexpr int PASS = 32 * VEC;  // columns of a warp in one pass
+  constexpr int NZ = GATHER_LOADS / PASSES;  // nonzeros a round
+  static_assert(NZ >= 1 && GATHER_LOADS % PASSES == 0, "whole rounds");
+  const int lane = threadIdx.x % 32;
+  const long long first =
+      ((long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) *
+      rows_per_warp;
+  if (first >= m) return;
+  const int row0 = (int)first;
+  const int rows = min(rows_per_warp, m - row0);
+  const int col0 = blockIdx.y * PASSES * PASS + lane * VEC;
+  const int my_ptr = lane <= rows ? row_ptr[row0 + lane] : 0;
+  const int p_end = __shfl_sync(FULL, my_ptr, rows);
+  float acc[PASSES][VEC];
+  int cur = 0;                               // the row being summed
+  int bound = __shfl_sync(FULL, my_ptr, 1);  // its end in the stream
+  auto begin_row = [&]() {
+#pragma unroll
+    for (int q = 0; q < PASSES; ++q)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[q][e] = 0.f;
+  };
+  auto end_row = [&]() {
+    float* o = out + (size_t)(row0 + cur) * n;
+#pragma unroll
+    for (int q = 0; q < PASSES; ++q) {
+      const int col = col0 + q * PASS;
+      if (c_vec && col + VEC <= n) {
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4)
+          *reinterpret_cast<float4*>(o + col + e) = make_float4(
+              acc[q][e], acc[q][e + 1], acc[q][e + 2], acc[q][e + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (col + e < n) o[col + e] = acc[q][e];
+      }
+    }
+    if (++cur < rows) {
+      bound = __shfl_sync(FULL, my_ptr, cur + 1);
+      begin_row();
+    }
+  };
+  begin_row();
+  int p = __shfl_sync(FULL, my_ptr, 0);
+  int next_col = 0;
+  float next_val = 0.f;
+  if (p + lane < p_end) {
+    next_col = g_col[p + lane];
+    next_val = g_val[p + lane];
+  }
+  for (; p < p_end; p += 32) {
+    const int cnt = min(32, p_end - p);
+    const int my_col = next_col;
+    const float my_val = next_val;
+    if (p + 32 + lane < p_end) {
+      next_col = g_col[p + 32 + lane];
+      next_val = g_val[p + 32 + lane];
+    }
+    for (int j = 0; j < cnt; j += NZ) {
+      // the round's B rows are loaded first, each value shuffled only
+      // when its FMAs run: no register holds it while the loads fly
+      Raw<TB, VEC> raw[NZ][PASSES];
+#pragma unroll
+      for (int u = 0; u < NZ; ++u) {
+        const int kr = __shfl_sync(FULL, my_col, (j + u) & 31);
+        if (j + u < cnt)
+#pragma unroll
+          for (int q = 0; q < PASSES; ++q)
+            load_b16<TB, ALIGNED>(raw[u][q], b + (size_t)kr * n,
+                                  col0 + q * PASS, n, b_align);
+      }
+#pragma unroll
+      for (int u = 0; u < NZ; ++u) {
+        if (j + u >= cnt) break;
+        const float v = __shfl_sync(FULL, my_val, (j + u) & 31);
+        while (p + j + u >= bound) end_row();
+#pragma unroll
+        for (int q = 0; q < PASSES; ++q) {
+          float bv[VEC];
+          to_f32(bv, raw[u][q]);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[q][e] = fmaf(v, bv[e], acc[q][e]);
+        }
+      }
+    }
+  }
+  while (cur < rows) end_row();
+}
+
+template <typename TB_, int PASSES_, bool ALIGNED_>
+struct GatherCfg {
+  using TB = TB_;
+  static constexpr int PASSES = PASSES_;
+  static constexpr bool ALIGNED = ALIGNED_;
+};
+
+// fn(GatherCfg<...>{}) for the gather build of B's dtype, passes and
+// alignment
+template <bool ALIGNED, typename Fn>
+cudaError_t select_gather(int b_bf16, int passes, Fn fn) {
+  if (b_bf16) return fn(GatherCfg<__nv_bfloat16, 1, ALIGNED>{});
+  return passes == 2 ? fn(GatherCfg<float, 2, ALIGNED>{})
+                     : fn(GatherCfg<float, 1, ALIGNED>{});
+}
+
 template <int TN_, typename TB_, bool SPLIT2_, bool CLUSTERED_>
 struct Cfg {
   static constexpr int TN = TN_;
@@ -821,6 +1041,46 @@ int cres_cluster_spmm(const int* row_ptr, const int* g_col,
       stream);
 }
 
+// The gather build, for an index with no dense tile at "split" / "highest"
+// (chunk_cuda.bind takes it for K3, K4, K5a and K5b alike): C (m x n f32,
+// out) from the index's CSR (row_ptr, g_col, g_val); B k x n f32 or bf16
+// (b_bf16).  The launch shape is the caller's: rows_per_warp output rows a
+// warp (1 to GATHER_MAX_ROWS), warps a block (1 to GATHER_WARPS_MAX),
+// passes of 32 lanes x 16 bytes a warp (1 or 2 with f32 B, 1 with bf16), a
+// grid_x x grid_y grid that covers the m rows and the n columns.  The
+// output equals tile_owner_spmm's bit for bit.  Returns
+// cudaGetLastError() after the launch.
+int gather_spmm(const int* row_ptr, const int* g_col, const float* g_val,
+                const void* b, int b_bf16, void* out, int m, int k, int n,
+                int rows_per_warp, int warps, int passes, int grid_x,
+                int grid_y, void* stream) {
+  const int esize = b_bf16 ? 2 : 4;
+  const long long span = (long long)passes * 32 * (16 / esize);
+  if (m <= 0 || k <= 0 || n <= 0 || rows_per_warp < 1 ||
+      rows_per_warp > GATHER_MAX_ROWS || warps < 1 ||
+      warps > GATHER_WARPS_MAX || passes < 1 || passes > (b_bf16 ? 1 : 2) ||
+      grid_x < 1 || grid_y < 1 || grid_y > 65535 ||
+      (long long)grid_x * warps * rows_per_warp < m || grid_y * span < n)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bits =
+      reinterpret_cast<uintptr_t>(b) | (uintptr_t)n * esize;
+  const int b_align = bits % 16 == 0 ? 16 : bits % 8 == 0 ? 8
+                      : bits % 4 == 0 ? 4 : 0;
+  const int c_vec = reinterpret_cast<uintptr_t>(out) % 16 == 0 && n % 4 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto launch = [&](auto c) {
+    using C = decltype(c);
+    using TB = typename C::TB;
+    gather_kernel<TB, C::PASSES, C::ALIGNED>
+        <<<dim3(grid_x, grid_y), warps * 32, 0, s>>>(
+            row_ptr, g_col, g_val, static_cast<const TB*>(b),
+            static_cast<float*>(out), m, n, rows_per_warp, b_align, c_vec);
+    return cudaGetLastError();
+  };
+  return (int)(b_align == 16 ? select_gather<true>(b_bf16, passes, launch)
+                             : select_gather<false>(b_bf16, passes, launch));
+}
+
 // Blocks of the owner routine one SM holds at once (the occupancy
 // calculator), for a record; 0 with the error in *err.
 int chunk_spmm_blocks_per_sm(int b_bf16, int wide, int split2, int* err) {
@@ -849,6 +1109,20 @@ int cres_cluster_max_active(int b_bf16, int wide, int split2, int* err) {
     return cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
   });
   return clusters;
+}
+
+// Blocks of `warps` warps of the gather build (B's dtype, passes; B's
+// rows 16-byte aligned) one SM holds at once (the occupancy calculator),
+// for a record; 0 with the error in *err.
+int gather_blocks_per_sm(int b_bf16, int passes, int warps, int* err) {
+  int blocks = 0;
+  *err = (int)select_gather<true>(b_bf16, passes, [&](auto c) {
+    using C = decltype(c);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, gather_kernel<typename C::TB, C::PASSES, C::ALIGNED>,
+        warps * 32, 0);
+  });
+  return blocks;
 }
 
 const char* chunk_spmm_error_string(int code) {

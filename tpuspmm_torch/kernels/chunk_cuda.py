@@ -4,8 +4,10 @@ the tile-plan kernels K3 (tile) and K4 (staged) through the C entry
 cluster launch ``cres_cluster_spmm`` (:func:`launch_cluster`), all over
 one tile index (:func:`tpuspmm_torch.kernels.tile_spmm.build_tile_index`),
 the cluster launch also over a cluster schedule
-(:func:`tpuspmm_torch.kernels.cres_spmm.cluster_schedule`); each Python
-entry passes its own name, for messages.
+(:func:`tpuspmm_torch.kernels.cres_spmm.cluster_schedule`); an index with
+no dense tile, at any tier but "split2", takes the gather build
+``gather_spmm`` from any of the four (:func:`bind`).  Each Python entry
+passes its own name, for messages.
 
 Built and bound through :mod:`tpuspmm_torch.kernels.cuda_build`.  Nothing
 here runs when the module is imported.
@@ -32,8 +34,26 @@ KC = 32
 # row tiles of a C-resident cluster (the source's CLUSTER, chosen there):
 # the cluster launch refuses a schedule of another size
 CLUSTER = 2
+# the gather build's limits, compiled into the source (GATHER_WARPS,
+# GATHER_MAX_ROWS, GATHER_SM_WARPS there; a CPU test holds them equal):
+# warps of a block, output rows of a warp, and the warps an SM holds at
+# once (the source caps the kernel's registers to fit them)
+GATHER_WARPS_MAX = 8
+GATHER_MAX_ROWS = 16
+GATHER_SM_WARPS = 32
+# its launch shape, chosen on the card (PERF.md, strip_sweep.py --chunk):
+# output rows of a warp where one row a warp would not fit the card in
+# one wave, warps of a block, and passes a warp makes over f32 B wider
+# than one pass
+GATHER_ROWS = 2
+GATHER_WARPS = 8
+GATHER_F32_PASSES = 2
+# bytes a warp's lanes load from a B row in one pass (32 lanes x 16)
+GATHER_PASS_BYTES = 512
 # the tile index's device arrays, in the order of the C interface
 INDEX = ("row_ptr", "g_col", "g_val", "d_ptr", "d_kt", "d_a", "order")
+# the arrays of it the gather build reads
+GATHER_INDEX = ("row_ptr", "g_col", "g_val")
 # the cluster schedule's device arrays, in the order of the C interface
 CLUSTER_INDEX = ("c_rt", "c_ptr", "s_kt", "s_tile", "c_order")
 
@@ -49,7 +69,13 @@ def _bind(lib) -> None:
                                 ctypes.c_void_p]
         + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.cres_cluster_spmm.restype = ctypes.c_int
-    for name in ("chunk_spmm_blocks_per_sm", "cres_cluster_max_active"):
+    lib.gather_spmm.argtypes = (
+        [ctypes.c_void_p] * (len(GATHER_INDEX) + 1)
+        + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8
+        + [ctypes.c_void_p])
+    lib.gather_spmm.restype = ctypes.c_int
+    for name in ("chunk_spmm_blocks_per_sm", "cres_cluster_max_active",
+                 "gather_blocks_per_sm"):
         getattr(lib, name).argtypes = [ctypes.c_int] * 3 + [
             ctypes.POINTER(ctypes.c_int)]
         getattr(lib, name).restype = ctypes.c_int
@@ -77,6 +103,25 @@ def column_tile(num_tiles: int, n: int, sms: int) -> int:
     when 128-column blocks would be fewer than the SMs."""
     wide, narrow = COLUMN_TILES[1], COLUMN_TILES[0]
     return wide if num_tiles * -(-n // wide) >= sms else narrow
+
+
+def gather_shape(m: int, n: int, b_bf16: bool, sms: int) -> dict:
+    """The gather build's launch shape for C (m, n), B of the given dtype
+    and ``sms`` SMs, which :func:`bind` passes to ``gather_spmm``.  A lane
+    loads 16 bytes of a B row a pass, so a pass covers 128 f32 or 256 bf16
+    columns; a warp makes GATHER_F32_PASSES passes over f32 B wider than
+    one (their columns in registers, each nonzero read once for all), and
+    the grid's second dimension is the column spans of ``passes`` passes.
+    A warp owns one row where a warp a row and span fits the card in one
+    wave (GATHER_SM_WARPS an SM: a row heavier than the rest then holds up
+    no other), else GATHER_ROWS; GATHER_WARPS warps a block."""
+    pass_cols = GATHER_PASS_BYTES // (2 if b_bf16 else 4)
+    passes = 1 if b_bf16 or n <= pass_cols else GATHER_F32_PASSES
+    spans = -(-n // (passes * pass_cols))
+    rows = 1 if m * spans <= sms * GATHER_SM_WARPS else GATHER_ROWS
+    return {"build": "gather", "rows_per_warp": rows,
+            "warps": GATHER_WARPS, "passes": passes,
+            "grid": [-(-m // (rows * GATHER_WARPS)), spans]}
 
 
 def _checked(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
@@ -144,16 +189,57 @@ def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
     device, or None when serving) counting its multicast B chunks.
     Checks the index and schedule once, here, and raises on what the
     kernel does not take; the C entry refuses a schedule of another R than
-    the build's CLUSTER at the launch.  The column tile
-    (:func:`column_tile`, over the real row tiles, so both launches take
-    the same one) is decided here and kept as the launch's ``shape``."""
+    the build's CLUSTER at the launch.  The build and its shape are
+    decided here and kept as the launch's ``shape``: an index with no
+    dense tile, but at "split2", takes the gather build
+    (:func:`gather_shape`; the cluster has no panel to share, so
+    ``issues`` stays untouched); any other the owner routine or the
+    cluster launch (``{"build": "owner" | "cluster", "column_tile"}``,
+    :func:`column_tile` over the real row tiles, so both take the same
+    one)."""
     num_tiles, n_dense = _checked(entry, idx, b, m, tm, tk, split2)
+    if sched is not None:
+        _checked_cluster(entry, sched, b, num_tiles, issues)
+    if n_dense == 0 and not split2:
+        return _gather_launch(entry, idx, b, m, counter)
+    return _routine_launch(entry, idx, b, m, tm, tk, split2, sched, issues,
+                           counter)
+
+
+def _gather_launch(entry: str, idx: dict, b: torch.Tensor, m: int,
+                   counter=None) -> cuda_build.Launch:
+    """The gather build's launch (``gather_spmm``) over the index's CSR,
+    in the shape :func:`gather_shape` gives."""
+    k, n = (int(s) for s in b.shape)
+    b_bf16 = b.dtype == torch.bfloat16
+    shape = gather_shape(m, n, b_bf16, cuda_build.sm_count(b.device))
+    keep = tuple(idx[name] for name in GATHER_INDEX)
+    head = tuple(t.data_ptr() for t in keep)
+    tail = (m, k, n, shape["rows_per_warp"], shape["warps"],
+            shape["passes"], *shape["grid"])
+
+    def args(b_ptr, out_ptr, stream):
+        return (*head, b_ptr, int(b_bf16), out_ptr, *tail, stream)
+
+    return cuda_build.Launch(sys.modules[__name__], "gather_spmm",
+                             "chunk_spmm_error_string", entry, b, m, args,
+                             keep, counter, shape)
+
+
+def _routine_launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
+                    tk: int, split2: bool, sched: dict | None = None,
+                    issues: torch.Tensor | None = None,
+                    counter=None) -> cuda_build.Launch:
+    """The owner routine's launch (``tile_owner_spmm``), or with ``sched``
+    the cluster launch's (``cres_cluster_spmm``), on an index and schedule
+    :func:`bind` checked."""
+    num_tiles = idx["order"].numel()
+    n_dense = idx["d_kt"].numel()
     k, n = (int(s) for s in b.shape)
     keep = tuple(idx[name] for name in INDEX)
     head = tuple(t.data_ptr() for t in keep)
     if sched is not None:
-        clusters, cluster = _checked_cluster(entry, sched, b, num_tiles,
-                                             issues)
+        clusters, cluster = sched["c_rt"].shape
         schedule = tuple(sched[name] for name in CLUSTER_INDEX)
         keep += schedule + ((issues,) if issues is not None else ())
         head += (*(t.data_ptr() for t in schedule),
@@ -167,9 +253,11 @@ def bind(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int, tk: int,
     def args(b_ptr, out_ptr, stream):
         return (*head, b_ptr, b_bf16, out_ptr, *tail, stream)
 
-    return cuda_build.Launch(sys.modules[__name__], name,
-                             "chunk_spmm_error_string", entry, b, m, args,
-                             keep, counter, {"column_tile": tn})
+    return cuda_build.Launch(
+        sys.modules[__name__], name, "chunk_spmm_error_string", entry, b, m,
+        args, keep, counter,
+        {"build": "owner" if sched is None else "cluster",
+         "column_tile": tn})
 
 
 def launch(entry: str, idx: dict, b: torch.Tensor, m: int, tm: int,
@@ -201,10 +289,15 @@ def max_active_clusters(b_bf16: bool, wide: bool, split2: bool) -> int:
     return _occupancy("cres_cluster_max_active", b_bf16, wide, split2)
 
 
-def _occupancy(name: str, b_bf16: bool, wide: bool, split2: bool) -> int:
+def gather_blocks(b_bf16: bool, passes: int, warps: int) -> int:
+    """Blocks of ``warps`` warps of the gather build an SM holds at once
+    (the occupancy calculator on the current device), for a record."""
+    return _occupancy("gather_blocks_per_sm", b_bf16, passes, warps)
+
+
+def _occupancy(name: str, *args) -> int:
     lib = load()
     err = ctypes.c_int(0)
-    count = getattr(lib, name)(int(b_bf16), int(wide), int(split2),
-                               ctypes.byref(err))
+    count = getattr(lib, name)(*(int(a) for a in args), ctypes.byref(err))
     cuda_build.check_launch(lib, "chunk_spmm_error_string", name, err.value)
     return count
